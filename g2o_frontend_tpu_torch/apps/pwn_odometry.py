@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from g2o_frontend_tpu.io import tum
+from ..io import tum
 
 from ..pwn.aligner import AlignerConfig
 from ..pwn.converter import ConverterConfig

@@ -1,20 +1,26 @@
-"""One aligner Gauss-Newton system: association + gates + robust linearization.
+"""Aligner Gauss-Newton systems: association + gates + robust linearization.
 
-Counterpart of ``g2o_frontend_tpu/ops/pallas_aligner.py`` (the Pallas
-``_kernel`` reached through ``fused_linearize``). For one ``invT`` it
-computes exactly the JAX reference's ``_correspondences_gather`` followed by
-``_linearize_planar`` and returns their 29 sums (Htt 6, Htr 9, Hrr 6, b 6,
-chi2, inliers) in ``_linearize_planar`` order.
+Counterpart of ``g2o_frontend_tpu/ops/pallas_aligner.py``: the Pallas
+``_kernel`` reached through ``fused_linearize`` (one system) and
+``_batch_kernel`` reached through ``fused_linearize_batch`` (K candidate
+systems against one shared current cloud). For one ``invT`` a system is
+exactly the JAX reference's ``_correspondences_gather`` followed by
+``_linearize_planar``: 29 sums (Htt 6, Htr 9, Hrr 6, b 6, chi2, inliers) in
+``_linearize_planar`` order.
 
-- `fused_system` is the wrapper. On a CUDA tensor it launches the
-  hand-written kernel ``csrc/fused_aligner.cu`` (or raises); on a CPU tensor
-  it takes the plain version. It counts its kernel launches in `launches`.
+- `fused_system` and `fused_system_batch` are the wrappers. On a CUDA
+  tensor they launch the hand-written kernels of ``csrc/fused_aligner.cu``
+  (or raise); on a CPU tensor they take the plain version. They count
+  their kernel launches in `launches` and `batch_launches`.
 - `fused_system_reference` is the plain PyTorch version on the same inputs:
-  `gather_correspondences` + `linearize_planar`.
+  `gather_correspondences` + `linearize_planar`;
+  `fused_system_batch_reference` is K of them.
 - `pack_cur` / `pack_ref` lay the clouds out once per align: the current
   cloud as (20, H, W) planes, the reference as an (H*W, 8) f32 table
-  [p(3), n(3), curv, valid] so that one exact gather is two 16 B loads.
-- `params_from_invT` and `unpack_sums` stay on the device (no host sync).
+  [p(3), n(3), curv, valid] so that one exact gather is two 16 B loads;
+  `pack_ref` of a stacked cloud gives (K, H*W, 8).
+- `params_from_invT` and `unpack_sums` take leading batch dimensions and
+  stay on the device (no host sync).
 
 The TPU kernel's band machinery (per-tile window, bf16 pairs, tile starts,
 coverage check) is not ported: the kernel gathers every correspondence
@@ -25,32 +31,22 @@ flags; importing this module needs neither nvcc nor a GPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-from . import sym6
+from . import cuda_build, sym6
 
 N_SUMS = 29
 C_CUR = 20
 C_REF = 8
 N_PARAMS = 24
 
-# kernel launches made by `fused_system` on CUDA tensors since the last reset
+# kernel launches made on CUDA tensors since the last reset: by
+# `fused_system` (one system) and by `fused_system_batch` (K systems)
 launches = 0
+batch_launches = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_aligner.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = cuda_build.CSRC / "fused_aligner.cu"
 _lib = None
 
 
@@ -66,38 +62,42 @@ def pack_cur(cloud):
 
 
 def pack_ref(cloud):
-    """Cloud -> (H*W, 8) table: p(3), n(3), curv, valid per pixel."""
+    """Cloud -> (H*W, 8) table: p(3), n(3), curv, valid per pixel; a cloud
+    stacked along a leading K axis gives (K, H*W, 8)."""
     dtype = cloud.p.dtype
-    planes = torch.cat([cloud.p, cloud.n, cloud.curv[None], cloud.valid[None].to(dtype)])
-    return planes.reshape(C_REF, -1).T.contiguous()
+    d = cloud.p.ndim - 3  # leading batch dimensions
+    planes = torch.cat([cloud.p, cloud.n, cloud.curv.unsqueeze(d), cloud.valid.unsqueeze(d).to(dtype)], d)
+    return planes.reshape(planes.shape[:d] + (C_REF, -1)).transpose(-1, -2).contiguous()
 
 
 def params_from_invT(invT):
-    """invT (4, 4) -> (24,) f32 [Rinv, tinv, R, t]: (Rinv, tinv) = invT^-1
-    maps current points into the reference camera, (R, t) = invT maps
-    reference attributes into the current frame."""
-    R = invT[:3, :3]
-    t = invT[:3, 3]
-    Rinv = R.T
-    tinv = -(Rinv @ t)
-    return torch.cat([Rinv.reshape(-1), tinv, R.reshape(-1), t]).to(torch.float32)
+    """invT (..., 4, 4) -> (..., 24) f32 [Rinv, tinv, R, t]: (Rinv, tinv) =
+    invT^-1 maps current points into the reference camera, (R, t) = invT
+    maps reference attributes into the current frame."""
+    R = invT[..., :3, :3]
+    t = invT[..., :3, 3]
+    Rinv = R.transpose(-1, -2)
+    tinv = -(Rinv @ t.unsqueeze(-1)).squeeze(-1)
+    return torch.cat([Rinv.flatten(-2), tinv, R.flatten(-2), t], -1).to(torch.float32)
 
 
 def _split(params):
     return params[0:9].reshape(3, 3), params[9:12], params[12:21].reshape(3, 3), params[21:24]
 
 
+_SYM = [0, 1, 2, 1, 3, 4, 2, 4, 5]  # sym6 -> row-major 3x3
+
+
 def _sym(v):
-    return torch.stack(
-        [torch.stack([v[0], v[1], v[2]]), torch.stack([v[1], v[3], v[4]]), torch.stack([v[2], v[4], v[5]])]
-    )
+    return v[..., _SYM].unflatten(-1, (3, 3))
 
 
 def unpack_sums(sums):
-    """(29,) sums -> (H (6, 6), b (6,), chi2 (), inliers () int32)."""
-    Htt, Htr, Hrr = _sym(sums[0:6]), sums[6:15].reshape(3, 3), _sym(sums[15:21])
-    H = torch.cat([torch.cat([Htt, Htr], 1), torch.cat([Htr.T, Hrr], 1)], 0)
-    return H, sums[21:27], sums[27], sums[28].to(torch.int32)
+    """(..., 29) sums -> (H (..., 6, 6), b (..., 6), chi2 (...), inliers
+    (...) int32)."""
+    Htt, Htr, Hrr = _sym(sums[..., 0:6]), sums[..., 6:15].unflatten(-1, (3, 3)), _sym(sums[..., 15:21])
+    H = torch.cat([torch.cat([Htt, Htr], -1), torch.cat([Htr.transpose(-1, -2), Hrr], -1)], -2)
+    return H, sums[..., 21:27], sums[..., 27], sums[..., 28].to(torch.int32)
 
 
 # -- the plain version -----------------------------------------------------------
@@ -166,7 +166,12 @@ def linearize_planar(mask, rp, rn, cur_p, cur_n, cur_op, cur_on, params, cfg):
     p = sym6.rot_apply(R, (rp[0], rp[1], rp[2]))
     p = (p[0] + t[0], p[1] + t[1], p[2] + t[2])
     n = sym6.rot_apply(R, (rn[0], rn[1], rn[2]))
-    op, on = cur_op, cur_on
+    return linearize_remapped(mask, p, n, cur_p, cur_n, cur_op, cur_on, cfg)
+
+
+def linearize_remapped(mask, p, n, cur_p, cur_n, op, on, cfg):
+    """`linearize_planar` after the remap: p, n are the reference point and
+    normal already mapped into the current frame, 3 planes each."""
     ep = tuple(p[k] - cur_p[k] for k in range(3))
     en = tuple(n[k] - cur_n[k] for k in range(3))
     wp = sym6.sym_apply(op, ep)
@@ -180,7 +185,7 @@ def linearize_planar(mask, rp, rn, cur_p, cur_n, cur_op, cur_on, params, cfg):
     if not cfg.robust_kernel:
         mask = mask & (local_chi2 <= cfg.inlier_max_chi2)
         kscale = torch.ones_like(kscale)
-    m = mask.to(rp.dtype)
+    m = mask.to(p[0].dtype)
     mk = m * kscale
 
     # columns of S(p) = -2 hat(p) and S(n) (the quaternion-chart jacobian)
@@ -215,39 +220,23 @@ def fused_system_reference(cur_packed, ref_table, params, projector, cfg):
     return linearize_planar(mask, rp, rn, c[0:3], c[3:6], c[8:14], c[14:20], params, cfg)
 
 
-# -- the kernel ------------------------------------------------------------------
+def fused_system_batch_reference(cur_packed, ref_tables, params, projector, cfg):
+    """The plain PyTorch version of the batch kernel: K single systems."""
+    return torch.stack(
+        [fused_system_reference(cur_packed, table, prm, projector, cfg) for table, prm in zip(ref_tables, params)]
+    )
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.isfile(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the fused aligner kernel needs the CUDA toolkit")
+# -- the kernels -----------------------------------------------------------------
 
 
 def build():
-    """Compile ``csrc/fused_aligner.cu`` into ``_build/<hash>/`` unless that
-    build exists. Returns (library path, seconds spent compiling, nvcc's
-    diagnostics)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_DIR / key
-    lib = out_dir / "libfused_aligner.so"
-    if lib.is_file():
-        return lib, 0.0, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libfused_aligner.{os.getpid()}.tmp.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    """Compile ``csrc/fused_aligner.cu`` unless that build exists. Returns
+    (library path, seconds spent compiling, nvcc's diagnostics)."""
+    return cuda_build.build(SOURCE)
+
+
+_GEOMETRY_ARGS = [ctypes.c_float] * 12 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _load():
@@ -257,23 +246,21 @@ def _load():
         lib = ctypes.CDLL(str(path))
         lib.fused_aligner_blocks.argtypes = [ctypes.c_int]
         lib.fused_aligner_blocks.restype = ctypes.c_int
-        lib.fused_aligner_launch.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 2
-            + [ctypes.c_float] * 12
-            + [ctypes.c_int, ctypes.c_void_p]
-        )
+        lib.fused_aligner_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + _GEOMETRY_ARGS
         lib.fused_aligner_launch.restype = ctypes.c_int
+        lib.fused_aligner_batch_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _GEOMETRY_ARGS
+        lib.fused_aligner_batch_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(cur_packed, ref_table, params, H, W):
+def _check(cur_packed, ref_table, params, H, W, K=None):
     dev = cur_packed.device
+    lead = () if K is None else (K,)
     for name, x, shape in (
         ("cur_packed", cur_packed, (C_CUR, H, W)),
-        ("ref_table", ref_table, (H * W, C_REF)),
-        ("params", params, (N_PARAMS,)),
+        ("ref_table", ref_table, lead + (H * W, C_REF)),
+        ("params", params, lead + (N_PARAMS,)),
     ):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, cur_packed on {dev}")
@@ -287,6 +274,26 @@ def _check(cur_packed, ref_table, params, H, W):
         raise ValueError("ref_table must be 16-byte aligned (float4 loads)")
     if not 0 < C_CUR * H * W < 2**31:
         raise ValueError(f"image size {H}x{W} out of the kernel's int32 range")
+    if K is not None and not 0 < K * H * W * C_REF < 2**31:
+        raise ValueError(f"{K} candidates of {H}x{W} out of the kernel's int32 range")
+
+
+def _geometry(projector, cfg, dev):
+    rthr = cfg.inlier_curvature_ratio_threshold
+    return (
+        projector.fx, projector.fy, projector.cx, projector.cy,
+        projector.min_distance, projector.max_distance,
+        cfg.inlier_normal_angular_threshold, cfg.inlier_distance_threshold**2,
+        cfg.flat_curvature_threshold, 1.0 / rthr, rthr, cfg.inlier_max_chi2,
+        int(bool(cfg.robust_kernel)), torch.cuda.current_stream(dev).cuda_stream,
+    )
+
+
+def _device_of(cur_packed, name):
+    dev = cur_packed.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
+    return dev
 
 
 def fused_system(cur_packed, ref_table, params, projector, cfg):
@@ -297,28 +304,52 @@ def fused_system(cur_packed, ref_table, params, projector, cfg):
     and does not synchronise; a CPU tensor takes `fused_system_reference`.
     """
     global launches
-    dev = cur_packed.device
+    dev = _device_of(cur_packed, "fused_system")
     if dev.type == "cpu":
         return fused_system_reference(cur_packed, ref_table, params, projector, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_system runs on CPU or CUDA tensors, got {dev}")
     H, W = projector.rows, projector.cols
     _check(cur_packed, ref_table, params, H, W)
     lib = _load()
     with torch.cuda.device(dev):
         block_sums = torch.empty((lib.fused_aligner_blocks(H * W), N_SUMS), dtype=torch.float32, device=dev)
         out = torch.empty(N_SUMS, dtype=torch.float32, device=dev)
-        rthr = cfg.inlier_curvature_ratio_threshold
         err = lib.fused_aligner_launch(
             cur_packed.data_ptr(), ref_table.data_ptr(), params.data_ptr(),
-            block_sums.data_ptr(), out.data_ptr(), H, W,
-            projector.fx, projector.fy, projector.cx, projector.cy,
-            projector.min_distance, projector.max_distance,
-            cfg.inlier_normal_angular_threshold, cfg.inlier_distance_threshold**2,
-            cfg.flat_curvature_threshold, 1.0 / rthr, rthr, cfg.inlier_max_chi2,
-            int(bool(cfg.robust_kernel)), torch.cuda.current_stream(dev).cuda_stream,
+            block_sums.data_ptr(), out.data_ptr(), H, W, *_geometry(projector, cfg, dev),
         )
     if err != 0:
         raise RuntimeError(f"fused_aligner kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def fused_system_batch(cur_packed, ref_tables, params, projector, cfg):
+    """(K, 29) sums of K aligner systems against one shared current cloud.
+
+    cur_packed (20, H, W), ref_tables (K, H*W, 8) and params (K, 24) are
+    float32 on one device. Row k equals `fused_system` of candidate k. A
+    CUDA tensor launches the batch kernel on the current stream and does not
+    synchronise; a CPU tensor takes `fused_system_batch_reference`.
+    """
+    global batch_launches
+    dev = _device_of(cur_packed, "fused_system_batch")
+    if dev.type == "cpu":
+        return fused_system_batch_reference(cur_packed, ref_tables, params, projector, cfg)
+    H, W = projector.rows, projector.cols
+    K = ref_tables.shape[0]
+    _check(cur_packed, ref_tables, params, H, W, K)
+    lib = _load()
+    n_blocks = lib.fused_aligner_blocks(H * W)
+    if n_blocks >= 2**16:
+        raise ValueError(f"image size {H}x{W} exceeds the batch kernel's grid")
+    with torch.cuda.device(dev):
+        block_sums = torch.empty((K, n_blocks, N_SUMS), dtype=torch.float32, device=dev)
+        out = torch.empty((K, N_SUMS), dtype=torch.float32, device=dev)
+        err = lib.fused_aligner_batch_launch(
+            cur_packed.data_ptr(), ref_tables.data_ptr(), params.data_ptr(),
+            block_sums.data_ptr(), out.data_ptr(), K, H, W, *_geometry(projector, cfg, dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_aligner batch kernel launch failed: CUDA error {err}")
+    batch_launches += 1
     return out

@@ -38,16 +38,17 @@ class Cloud(NamedTuple):
     on: torch.Tensor
     valid: torch.Tensor
 
-    # trailing-layout views, read by the z-buffer association
+    # trailing-layout views, read by the z-buffer association and the
+    # matcher; a cloud stacked along leading axes keeps them in front
     @property
     def points(self):
-        """(H, W, 3) points."""
-        return self.p.movedim(0, -1)
+        """(..., H, W, 3) points."""
+        return self.p.movedim(-3, -1)
 
     @property
     def normals(self):
-        """(H, W, 3) normals."""
-        return self.n.movedim(0, -1)
+        """(..., H, W, 3) normals."""
+        return self.n.movedim(-3, -1)
 
     @property
     def omega_p(self):

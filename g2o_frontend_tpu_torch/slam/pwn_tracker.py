@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from g2o_frontend_tpu.graph.map_manager import MapManager, MapNode, MapRelation
+from ..graph.map_manager import MapManager, MapNode, MapRelation
 
 from ..pwn.aligner import AlignerConfig, align
 from ..pwn.converter import ConverterConfig, depth_to_cloud
@@ -87,7 +87,7 @@ class PwnTracker:
         aligner_config: AlignerConfig = AlignerConfig(),
         config: PwnTrackerConfig = PwnTrackerConfig(),
         manager: MapManager | None = None,
-        device="cpu",
+        device="cuda",
     ):
         self.projector = projector
         self.ccfg = converter_config
@@ -207,7 +207,7 @@ def odometry_scan(
     kf_fraction: float = 0.4,
     min_cloud_inliers: int = 3000,
     depth_scale: float | None = None,
-    device="cpu",
+    device="cuda",
 ):
     """Whole-sequence odometry with no host synchronisation per frame.
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from g2o_frontend_tpu.io.tum import associate
+from ..io.tum import associate
 
 
 def fit_rigid(src, dst):

@@ -62,7 +62,7 @@ def test_tracker_matches_jax(sequence):
     s = sequence
     cfg = dict(new_frame_inliers_fraction=KF_FRACTION, min_cloud_inliers=s["min_inliers"])
     jt = jtracker.PwnTracker(s["jproj"], s["jccfg"], s["jacfg"], jtracker.PwnTrackerConfig(**cfg))
-    tt = ttracker.PwnTracker(s["proj"], s["ccfg"], s["acfg"], ttracker.PwnTrackerConfig(**cfg))
+    tt = ttracker.PwnTracker(s["proj"], s["ccfg"], s["acfg"], ttracker.PwnTrackerConfig(**cfg), device="cpu")
     for d in s["depths"]:
         mj = jt.process_frame(jnp.asarray(d))
         mt = tt.process_frame(d)
@@ -79,7 +79,7 @@ def test_odometry_scan_matches_jax(sequence):
     s = sequence
     kw = dict(kf_fraction=KF_FRACTION, min_cloud_inliers=s["min_inliers"], depth_scale=1.0 / 5000.0)
     traj_j, met_j = jtracker.odometry_scan(s["raw"], s["jproj"], s["jccfg"], s["jacfg"], **kw)
-    traj_t, met_t = ttracker.odometry_scan(s["raw"], s["proj"], s["ccfg"], s["acfg"], **kw)
+    traj_t, met_t = ttracker.odometry_scan(s["raw"], s["proj"], s["ccfg"], s["acfg"], **kw, device="cpu")
     assert traj_t.shape == (N_FRAMES, 4, 4) and traj_t.dtype == torch.float32
     _assert_poses_close(traj_t.numpy(), np.asarray(traj_j))
     np.testing.assert_array_equal(met_t["keyframe"].numpy(), np.asarray(met_j["keyframe"]))
@@ -88,7 +88,7 @@ def test_odometry_scan_matches_jax(sequence):
     np.testing.assert_allclose(met_t["fraction"].numpy(), np.asarray(met_j["fraction"]), atol=0.01)
     # the raw-count path equals converting on the host
     traj_f, _ = ttracker.odometry_scan(s["depths"], s["proj"], s["ccfg"], s["acfg"], kf_fraction=KF_FRACTION,
-                                       min_cloud_inliers=s["min_inliers"])
+                                       min_cloud_inliers=s["min_inliers"], device="cpu")
     np.testing.assert_array_equal(traj_f.numpy(), traj_t.numpy())
 
 
