@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1) and
-PWN SLAM with loop closing (slice 2).
+"""GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1),
+PWN SLAM with loop closing (slice 2) and the gather probes.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -9,14 +9,14 @@ CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
 
 Phases, one line each or more, any failure exits non-zero:
   1. device: the card, its power limit, torch and CUDA versions;
-  2. build: nvcc builds csrc/fused_aligner.cu and csrc/linearizer.cu from
-     the checkout, both at once;
+  2. build: nvcc builds csrc/fused_aligner.cu, csrc/linearizer.cu and
+     csrc/gather_probe.cu from the checkout, all at once;
   3. kernel 1 (one aligner system) against its plain PyTorch version on the
      640x480 bench pair at three poses (identity, ground truth, a 5 cm /
      3 deg perturbation), and once more with the non-robust chi2 gate;
   4. align at 640x480 with the default configs: t_err gate, launch count,
-     median convert/align times by CUDA events, and device times (profiler)
-     of the kernel, its plain version, align and convert;
+     median convert/align times by CUDA events, device times of align and
+     convert (torch.profiler) and of the kernel and its plain version;
   5. the tracker command line over the bundled 120-frame TUM sequence at
      scale 2 (ATE gate, per-frame and --scan modes) and, as slice 1's
      main-path run whose kernel launches are counted, at scale 1 (640x480);
@@ -33,15 +33,25 @@ Phases, one line each or more, any failure exits non-zero:
      radius over that map's keyframes and the hierarchical pose-graph
      solve, whose kernel-2 launches are counted; kernel 2 against its plain
      version on the inputs of every one of those launches, and its times at
-     the largest batch; and the app's synthetic 40-frame orbit.
-Then one JSON line of the kernels, the card's name and power limit, and a
-last JSON line with the device.
+     the largest batch; and the app's synthetic 40-frame orbit;
+ 10. the gather probes of apps/profile_gather.py: the TPU script's four
+     probes at its shapes, each kernel bit-equal to its plain version (NaN in
+     the same places), with in-range indices and with wrapped and
+     out-of-range ones; the flat gather at 640x480 over the bench pair's
+     reference table (identity, projective, random) and, projective, over
+     phase 6's K = 8 tables and phase 9's largest batch, each timed beside
+     torch.gather and its bound; kernel 2's gather without its arithmetic
+     on the inputs of phases 6 and 9, equal to its plain version and timed
+     in turns with kernel 2.
+Every kernel's device time, and its plain version's, is the slope of CUDA
+graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
+that checks the kernel. Then one JSON line of the kernels, the card's name
+and power limit, and a last JSON line with the device.
 """
 import concurrent.futures
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,22 +59,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEQ = os.path.join(REPO, "eval_out", "tum_seq")
 
-# The bench pair of bench.py:61-94: three planes, a known small motion.
-BENCH_PLANES = [
-    ((0.0, 0.0, -1.0), -2.5),
-    ((-1.0, 0.0, 0.0), -1.2),
-    ((0.0, -1.0, 0.0), -0.9),
-]
-BENCH_XI = (0.04, -0.02, 0.05, 0.01, 0.03, -0.02)
-BENCH_INLIERS = 251124  # aligner inliers on this pair in the JAX package's bench record (BENCH_r05)
+BENCH_INLIERS = 251124  # aligner inliers on the bench pair in the JAX package's bench record (BENCH_r05)
 EVAL_ATE_S2 = 0.346  # CPU tracker ATE on eval_out/tum_seq at --scale 2 (EVAL.md section 4)
-K_CANDIDATES = 8
-CANDIDATE_SEED = 7
 
-# Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores; the kernels do float32 arithmetic.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # Float32 operations per pixel, counted from csrc/pwn_terms.cuh: the gather
 # and gates of pixel_terms (~80) plus linearize_terms (~250) plus the 29
 # sums of the block reduction; linearize_terms plus the sums alone.
@@ -72,99 +69,15 @@ OPS_PER_PIXEL_SYSTEM = 360
 OPS_PER_PIXEL_LINEARIZE = 280
 
 
-class SmokeFailure(Exception):
-    pass
-
-
 def check(cond, msg):
     if not cond:
-        raise SmokeFailure(msg)
+        from g2o_frontend_tpu_torch.utils.profiling import CheckFailure
+
+        raise CheckFailure(msg)
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the least time for `n_bytes` of device memory
-    traffic and `n_ops` float32 operations at the card's peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bench_projector():
-    from g2o_frontend_tpu_torch.pwn.projector import PinholeProjector
-
-    H, W = 480, 640
-    return PinholeProjector(rows=H, cols=W, fx=525.0, fy=525.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5,
-                            min_distance=0.1, max_distance=10.0)
-
-
-def bench_depth(T, device):
-    import numpy as np
-
-    from g2o_frontend_tpu_torch.utils.synth import render_planes_depth
-
-    planes = [(np.array(n), d) for n, d in BENCH_PLANES]
-    return render_planes_depth(T, bench_projector(), planes, device=device)
-
-
-def bench_pair(device):
-    import numpy as np
-    import torch
-
-    from g2o_frontend_tpu_torch.utils import lie
-
-    T_gt = lie.se3_exp(torch.tensor(BENCH_XI, dtype=torch.float32)).numpy()
-    return bench_depth(np.eye(4), device), bench_depth(T_gt, device), bench_projector(), T_gt
-
-
-def event_ms(fn, runs):
-    """Per-run milliseconds of `fn` by CUDA events, one pair per run."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(runs):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return times
-
-
-def batch_ms(fn, n):
-    """Milliseconds per call of `fn` over a run of n back-to-back calls."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
-def device_ms(fn, n):
-    """Device milliseconds per call of `fn`: the CUDA kernel time that
-    torch.profiler records over n calls, divided by n."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / 1000.0 / n
 
 
 def compare_sums(phase, name, sk, sp, rtol=1e-3, per_row=True):
@@ -208,16 +121,18 @@ def compare_sums(phase, name, sk, sp, rtol=1e-3, per_row=True):
 def build_kernels():
     """Phase 2: one nvcc per CUDA source, all started together."""
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.ops import gather_probe as gp
     from g2o_frontend_tpu_torch.ops import linearizer as lin
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [(mod, pool.submit(mod.build)) for mod in (fa, lin)]
+    modules = (fa, lin, gp)
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        builds = [(mod, pool.submit(mod.build)) for mod in modules]
         for mod, fut in builds:
             lib, secs, log = fut.result()
             ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
             say("build", f"{os.path.relpath(lib, REPO)} built in {secs:.1f} s; " + " | ".join(ptxas))
-    say("build", f"both kernels built in {time.perf_counter() - t0:.1f} s of wall time")
+    say("build", f"{len(modules)} sources built in {time.perf_counter() - t0:.1f} s of wall time")
 
 
 def phase_kernel1(ctx):
@@ -253,6 +168,8 @@ def phase_align(ctx):
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.pwn.aligner import align
     from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
+    from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
+    from g2o_frontend_tpu_torch.utils.profiling import bound, device_ms, event_ms, graph_ms
 
     acfg, proj, ref, cur = ctx["acfg"], ctx["proj"], ctx["ref"], ctx["cur"]
     before = fa.launches
@@ -283,16 +200,14 @@ def phase_align(ctx):
     def plain():
         return fa.fused_system_reference(ctx["cur_packed"], ctx["ref_table"], params, proj, acfg)
 
-    say("timing", f"CUDA events, median over 30 runs: depth_to_cloud {conv_ms:.3f} ms, align {align_ms:.3f} ms; "
-        f"one system at 640x480, back-to-back calls: kernel {batch_ms(kernel, 200):.4f} ms, "
-        f"plain {batch_ms(plain, 30):.4f} ms")
-    kernel_ms, plain_ms = device_ms(kernel, 50), device_ms(plain, 20)
-    say("timing", f"device time per call (torch.profiler): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"align {device_ms(lambda: align(ref, cur, proj, config=acfg), 10):.4f} ms, "
-        f"depth_to_cloud {device_ms(lambda: depth_to_cloud(d_cur, proj, ccfg), 10):.4f} ms")
-    n = proj.rows * proj.cols
-    n_bytes = n * (fa.C_CUR + fa.C_REF) * 4 + (fa.N_PARAMS + fa.N_SUMS) * 4
-    return kernel_ms, plain_ms, bound(n_bytes, n * OPS_PER_PIXEL_SYSTEM)
+    say("timing", f"CUDA events, median over 30 runs: depth_to_cloud {conv_ms:.3f} ms, align {align_ms:.3f} ms")
+    kernel_ms, plain_ms = graph_ms(kernel, params, 50), graph_ms(plain, params, 20)
+    say("timing", f"one system at 640x480, device ms per call by CUDA graph replays: kernel {kernel_ms:.6f}, plain "
+        f"{plain_ms:.6f}; by torch.profiler: kernel {device_ms(kernel, 50):.6f}, "
+        f"align {device_ms(lambda: align(ref, cur, proj, config=acfg), 10):.4f}, "
+        f"depth_to_cloud {device_ms(lambda: depth_to_cloud(d_cur, proj, ccfg), 10):.4f}")
+    n_bytes = system_bytes(ctx["cur_packed"], params, proj, fa.N_SUMS)
+    return kernel_ms, plain_ms, bound(n_bytes, proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM)
 
 
 def phase_tracker(out_dir, per_align):
@@ -331,27 +246,28 @@ def candidates(ctx):
     cm and degrees around the identity (fixed seed). Returns (stacked clouds,
     the list, (K, 4, 4) true current -> candidate transforms)."""
     import numpy as np
-    import torch
 
     from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
     from g2o_frontend_tpu_torch.slam.pwn_matcher import stack_clouds
-    from g2o_frontend_tpu_torch.utils import lie
+    from g2o_frontend_tpu_torch.utils import synth
 
-    rng = np.random.default_rng(CANDIDATE_SEED)
-    xis = np.concatenate([rng.normal(0.0, 0.03, (K_CANDIDATES, 3)), rng.normal(0.0, np.deg2rad(2.0), (K_CANDIDATES, 3))], 1)
-    poses = lie.se3_exp(torch.as_tensor(xis, dtype=torch.float32)).double().numpy()
-    clouds = [depth_to_cloud(bench_depth(P, ctx["device"]), ctx["proj"], ctx["ccfg"]) for P in poses]
+    poses = synth.candidate_poses(synth.K_CANDIDATES)
+    clouds = [depth_to_cloud(synth.bench_depth(P, ctx["device"]), ctx["proj"], ctx["ccfg"]) for P in poses]
     T_true = np.stack([np.linalg.inv(P) @ ctx["T_gt"] for P in poses])
     return stack_clouds(clouds), clouds, T_true, poses
 
 
 def phase_kernel2(ctx):
     """Phase 6: kernel 2 against its plain version and against K kernel-1
-    calls; times of kernel 2 and of its plain version."""
+    calls; times of kernel 2 and of its plain version. Keeps the tables and
+    params in ctx["k8"] for phase 10."""
     import numpy as np
     import torch
 
+    from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms
+    from g2o_frontend_tpu_torch.utils.synth import K_CANDIDATES
 
     proj, acfg, cur_packed = ctx["proj"], ctx["acfg"], ctx["cur_packed"]
     refs = ctx["refs"]
@@ -362,6 +278,7 @@ def phase_kernel2(ctx):
     sk = fa.fused_system_batch(cur_packed, tables, params, proj, acfg)
     sp = fa.fused_system_batch_reference(cur_packed, tables, params, proj, acfg)
     err = compare_sums("kernel 2", "vs plain", sk, sp)
+    ctx["k8"] = (cur_packed, tables, params, proj, acfg)
     single = torch.stack([fa.fused_system(cur_packed, tables[k], params[k], proj, acfg) for k in range(K_CANDIDATES)])
     compare_sums("kernel 2", "vs kernel 1", sk, single, rtol=1e-6)
     say("kernel 2", f"max abs diff against {K_CANDIDATES} kernel-1 calls: {float((sk - single).abs().max()):.3e}")
@@ -372,13 +289,12 @@ def phase_kernel2(ctx):
     def plain():
         return fa.fused_system_batch_reference(cur_packed, tables, params, proj, acfg)
 
-    kernel_ms, plain_ms = device_ms(kernel, 50), device_ms(plain, 5)
-    n = proj.rows * proj.cols
-    n_bytes = n * fa.C_CUR * 4 + K_CANDIDATES * (n * fa.C_REF * 4 + (fa.N_PARAMS + fa.N_SUMS) * 4)
-    bound_ms, bound_by = bound(n_bytes, K_CANDIDATES * n * OPS_PER_PIXEL_SYSTEM)
-    say("timing", f"kernel 2, K={K_CANDIDATES} at 640x480, device time per call (torch.profiler): kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"back-to-back calls: kernel {batch_ms(kernel, 100):.4f} ms; max abs err vs plain {err:.3e}")
+    kernel_ms, plain_ms = graph_ms(kernel, params, 50), graph_ms(plain, params, 8)
+    n_bytes = system_bytes(cur_packed, params, proj, fa.N_SUMS)
+    bound_ms, bound_by = bound(n_bytes, K_CANDIDATES * proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM)
+    say("timing", f"kernel 2, K={K_CANDIDATES} at 640x480, device ms per call by CUDA graph replays: kernel "
+        f"{kernel_ms:.6f}, plain {plain_ms:.6f}; bound {bound_ms:.6f} ({bound_by}, {n_bytes} B); "
+        f"max abs err vs plain {err:.3e}")
 
 
 def phase_align_batch(ctx):
@@ -388,6 +304,8 @@ def phase_align_batch(ctx):
 
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.pwn.aligner import align, align_batch
+    from g2o_frontend_tpu_torch.utils.profiling import device_ms, event_ms
+    from g2o_frontend_tpu_torch.utils.synth import K_CANDIDATES
 
     proj, acfg, cur = ctx["proj"], ctx["acfg"], ctx["cur"]
     # the closer's guess: the candidate's pose with the current one at the identity
@@ -430,6 +348,7 @@ def phase_kernel3(ctx):
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.ops import linearizer as lin
     from g2o_frontend_tpu_torch.pwn import aligner as al
+    from g2o_frontend_tpu_torch.utils.profiling import bound, event_ms, graph_ms
 
     proj, cur_packed = ctx["proj"], ctx["cur_packed"]
     zcfg = dataclasses.replace(ctx["acfg"], association="zbuffer")
@@ -450,10 +369,10 @@ def phase_kernel3(ctx):
             inputs = (mask, p, n, cfg)
 
     mask, p, n, cfg = inputs
-    kernel_ms = device_ms(lambda: lin.linearize_system(mask, p, n, cur_packed, cfg), 50)
-    plain_ms = device_ms(lambda: lin.linearize_system_reference(mask, p, n, cur_packed, cfg), 20)
-    say("timing", f"kernel 3 at 640x480, device time per call (torch.profiler): kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+    kernel_ms = graph_ms(lambda: lin.linearize_system(mask, p, n, cur_packed, cfg), mask, 50)
+    plain_ms = graph_ms(lambda: lin.linearize_system_reference(mask, p, n, cur_packed, cfg), mask, 20)
+    say("timing", f"kernel 3 at 640x480, device ms per call by CUDA graph replays: kernel {kernel_ms:.6f}, "
+        f"plain {plain_ms:.6f}")
 
     lin.launches, before1 = 0, fa.launches  # kernel 3's path: align with the z-buffer association
     res = al.align(ctx["ref"], ctx["cur"], proj, config=zcfg)
@@ -493,18 +412,21 @@ def phase_slam(ctx, out_dir):
     """Phase 9: PWN SLAM at 640x480. Returns kernel 2's launches on slice
     2's main path (the loop closer over the sequence's keyframe map), its
     max abs error against the plain version over every call of that run,
-    and its device time, its plain version's and its bound at the run's
-    largest batch."""
+    and its plain version's device time and its bound at the run's largest
+    batch (kernel 2's own time there is printed here and taken by phase 10).
+    Keeps that batch's inputs in ctx["k_max"] for phase 10."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch.apps import pwn_odometry, pwn_slam
+    from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
     from g2o_frontend_tpu_torch.graph.reflector import MapReflector
     from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.slam.map_closer import CloserConfig, MapCloser
     from g2o_frontend_tpu_torch.slam.map_merger import MapMerger
     from g2o_frontend_tpu_torch.slam.pwn_tracker import PwnTracker, PwnTrackerConfig
+    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms
 
     device = ctx["device"]
     r = pwn_slam.run([SEQ, "--device", "cuda", "--scale", "1", "--kf-fraction", "0.75",
@@ -585,13 +507,15 @@ def phase_slam(ctx, out_dir):
     # times at the closer's largest batch, its last (converged) system
     cur_packed, tables, params, proj_, acfg_ = max(reversed(calls), key=lambda c: c[1].shape[0])
     K = tables.shape[0]
-    kernel_ms = device_ms(lambda: fa.fused_system_batch(cur_packed, tables, params, proj_, acfg_), 20)
-    plain_ms = device_ms(lambda: fa.fused_system_batch_reference(cur_packed, tables, params, proj_, acfg_), 2)
-    say("timing", f"kernel 2 on the closer's largest batch, K={K} at {proj_.rows}x{proj_.cols}, device time per call "
-        f"(torch.profiler): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    n = proj_.rows * proj_.cols
-    n_bytes = n * fa.C_CUR * 4 + K * (n * fa.C_REF * 4 + (fa.N_PARAMS + fa.N_SUMS) * 4)
-    k2 = (launches, err, kernel_ms, plain_ms, bound(n_bytes, K * n * OPS_PER_PIXEL_SYSTEM))
+    ctx["k_max"] = (cur_packed, tables, params, proj_, acfg_)
+    kernel_ms = graph_ms(lambda: fa.fused_system_batch(cur_packed, tables, params, proj_, acfg_), params, 20)
+    plain_ms = graph_ms(lambda: fa.fused_system_batch_reference(cur_packed, tables, params, proj_, acfg_), params, 4)
+    n_bytes = system_bytes(cur_packed, params, proj_, fa.N_SUMS)
+    k2_bound = bound(n_bytes, K * proj_.rows * proj_.cols * OPS_PER_PIXEL_SYSTEM)
+    say("timing", f"kernel 2 on the closer's largest batch, K={K} at {proj_.rows}x{proj_.cols}, device ms per call by "
+        f"CUDA graph replays: kernel {kernel_ms:.6f}, plain {plain_ms:.6f}; bound {k2_bound[0]:.6f} "
+        f"({k2_bound[1]}, {n_bytes} B)")
+    k2 = (launches, err, kernel_ms, plain_ms, k2_bound)
 
     syn = pwn_slam.run(["--synthetic", "--frames", "40", "--device", "cuda",
                         "--out-map", os.path.join(out_dir, "map_syn.npz"),
@@ -602,6 +526,69 @@ def phase_slam(ctx, out_dir):
     return k2
 
 
+def phase_gather(ctx):
+    """Phase 10: the probe path of apps/profile_gather.py. (a) The TPU
+    script's four probes at its shapes and inputs, each driven as a path of
+    its own (launch count set to 0 just before, read just after), each
+    kernel bit-equal to its plain version, NaN in the same places; then the
+    four with wrapped and out-of-range indices. (b) The flat gather at
+    640x480 over the bench pair's reference table (identity, projective,
+    random) and, in the projective pattern, over phase 6's K = 8 tables and
+    phase 9's largest batch; each timed rotating over input copies that
+    stream twice the L2. (c) Kernel 2's gather without its arithmetic
+    (`projective_gather_sum`) on the inputs of phase 6's K = 8 call and of
+    phase 9's largest batch, equal to its plain version, timed in turns with
+    kernel 2. Returns the kernels-line entries of the four probes, of the
+    640x480 projective gather and of (c) at phase 9's largest batch."""
+    import torch
+
+    from g2o_frontend_tpu_torch.apps import profile_gather as pg
+    from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.ops import gather_probe as gp
+
+    def counted(g):
+        """Drive g's path once; its launches and the max abs error of its
+        output against the plain version (NaN positions already equal)."""
+        gp.launches = 0
+        out, ref = pg.check(g)
+        launches = gp.launches
+        check(launches == 1, f"{g.name}: {launches} kernel launches, not 1")
+        return launches, float((out - ref).nan_to_num(0.0).abs().max())
+
+    def entry(name, g, launches, err, m):
+        return {"name": name, "route": "cuda", "source": "g2o_frontend_tpu_torch/csrc/gather_probe.cu",
+                "replaces": g.replaces, "launches": launches, "max_abs_err": err, "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                "library_ms": m["library_ms"]}
+
+    entries = []
+    names = ("take_along_lanes_8x128", "take_along_lanes_8x1024", "take_along_sublanes_1024x128",
+             "flat_gather_64x128")
+    for name, g in zip(names, pg.tpu_probes(ctx["device"])):
+        entries.append(entry(name, g, *counted(g), pg.measure(g, n=50)))
+    for g in pg.out_of_range_probes(ctx["device"]):
+        counted(g)
+    params = fa.params_from_invT(torch.as_tensor(ctx["inv_gt"], dtype=torch.float32, device=ctx["device"]))
+    batches = [ctx["k8"], ctx["k_max"]]
+    for g in pg.aligner_gathers(ctx["cur_packed"], ctx["ref_table"], params, ctx["proj"], [c[:4] for c in batches]):
+        launches, err = counted(g)
+        m = pg.measure(g, n=20)
+        if g.name.endswith(" projective"):  # the bench pair's own table
+            entries.append(entry("flat_gather_640x480_projective", g, launches, err, m))
+    for cur_packed, tables, params_k, proj, acfg in batches:
+        gp.launches = 0
+        pg.check_traffic(cur_packed, tables, params_k, proj)
+        launches = gp.launches
+        check(launches == 1, f"kernel 2's gather, K={tables.shape[0]}: {launches} kernel launches, not 1")
+        m = pg.measure_traffic(cur_packed, tables, params_k, proj, acfg)
+    return entries + [{  # the last batch is phase 9's largest
+        "name": f"projective_gather_sum_K{tables.shape[0]}", "route": "cuda",
+        "source": "g2o_frontend_tpu_torch/csrc/gather_probe.cu", "replaces": f"{pg.SCRIPT}:103",
+        "launches": launches, "max_abs_err": 0.0, "ms": m["ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }]
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -610,12 +597,11 @@ def run(out_dir):
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.pwn.aligner import AlignerConfig
     from g2o_frontend_tpu_torch.pwn.converter import ConverterConfig, depth_to_cloud
+    from g2o_frontend_tpu_torch.utils.profiling import gpu_name_and_power_limit
+    from g2o_frontend_tpu_torch.utils.synth import bench_pair
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = gpu_name_and_power_limit()
     print(smi, flush=True)
     say("device", f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; CUDA {torch.version.cuda}")
     device = torch.device("cuda:0")
@@ -638,6 +624,7 @@ def run(out_dir):
     phase_align_batch(ctx)  # 7
     err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase_kernel3(ctx)  # 8
     k2_launches, err2, k2_ms, k2_plain_ms, k2_bound = phase_slam(ctx, out_dir)  # 9
+    gather_entries = phase_gather(ctx)  # 10
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (
@@ -653,7 +640,9 @@ def run(out_dir):
             "replaces": f"g2o_frontend_tpu/{replaces}", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-        check(launches > 0, f"{name} was not launched on its path")
+    kernels += gather_entries
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "g2o_frontend_tpu.")) or
                  m == "g2o_frontend_tpu")
     check(not bad, f"the port imported {bad}")
@@ -672,11 +661,13 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from g2o_frontend_tpu_torch.utils.profiling import CheckFailure
+
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as out_dir:
             kind, count = run(out_dir)
-    except SmokeFailure as exc:
+    except CheckFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     say("done", f"{time.perf_counter() - t0:.1f} s")

@@ -92,7 +92,9 @@ def run(argv=None) -> dict:
     device = torch.device(args.device)
     if args.synthetic:
         proj, ccfg, acfg, closer_cfg = synthetic_configs()
-        frames = [(k / 30.0, render_planes_depth(T, proj)) for k, T in enumerate(synthetic_orbit(args.frames))]
+        frames = [
+            (k / 30.0, render_planes_depth(T, proj, device=device)) for k, T in enumerate(synthetic_orbit(args.frames))
+        ]
     else:
         if args.seq_dir is None:
             raise SystemExit("pwn_slam: give a sequence directory or --synthetic")

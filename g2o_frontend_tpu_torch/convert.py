@@ -25,7 +25,7 @@ from .slam.map_closer import CloserConfig
 _CONFIGS = (PinholeProjector, ConverterConfig, AlignerConfig, CloserConfig)
 
 
-def cloud_from_numpy(arrays, device="cpu") -> Cloud:
+def cloud_from_numpy(arrays, device="cuda") -> Cloud:
     """{field: array} (e.g. a JAX Cloud's ``_asdict()`` through numpy) -> Cloud
     on `device`; `valid` becomes bool, every other field float32."""
     return Cloud(
@@ -41,7 +41,7 @@ def cloud_to_numpy(cloud: Cloud) -> dict:
     return {name: getattr(cloud, name).detach().cpu().numpy() for name in Cloud._fields}
 
 
-def pose_graph3d_from_numpy(arrays, device="cpu") -> PoseGraph3D:
+def pose_graph3d_from_numpy(arrays, device="cuda") -> PoseGraph3D:
     """{field: array} (e.g. a JAX PoseGraph3D's fields through numpy) ->
     PoseGraph3D on `device`: masks bool, indices int64, the rest float32."""
 

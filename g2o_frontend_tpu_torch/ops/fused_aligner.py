@@ -103,14 +103,14 @@ def unpack_sums(sums):
 # -- the plain version -----------------------------------------------------------
 
 
-def gather_correspondences(cur_p, cur_n, cur_curv, cur_valid, ref_table, params, projector, cfg):
-    """For every current pixel: project into the reference image, fetch the
-    reference point/normal/curvature there, apply the four gates.
+def project_to_reference(cur_p, cur_valid, params, projector):
+    """Project every current pixel's point into the reference image.
 
-    Returns (mask (H, W) bool, rp (3, H, W), rn (3, H, W)) with rp/rn in the
-    reference frame (the JAX ``_correspondences_gather``).
+    Returns (inside (H, W) bool: the point is valid, within the depth range
+    and lands in the image; idx (H, W) int64: the reference pixel v * W + u
+    that `gather_correspondences` fetches, clamped into the image).
     """
-    Rinv, tinv, R, t = _split(params)
+    Rinv, tinv, _, _ = _split(params)
     qx, qy, qz = sym6.rot_apply(Rinv, (cur_p[0], cur_p[1], cur_p[2]))
     qx, qy, qz = qx + tinv[0], qy + tinv[1], qz + tinv[2]
     d = qz
@@ -129,8 +129,19 @@ def gather_correspondences(cur_p, cur_n, cur_curv, cur_valid, ref_table, params,
         & (vi >= 0)
         & (vi < H)
     )
-    idx = torch.clamp(vi, 0, H - 1) * W + torch.clamp(ui, 0, W - 1)
-    got = ref_table[idx.reshape(-1)].T.reshape(C_REF, H, W)
+    return inside, torch.clamp(vi, 0, H - 1) * W + torch.clamp(ui, 0, W - 1)
+
+
+def gather_correspondences(cur_p, cur_n, cur_curv, cur_valid, ref_table, params, projector, cfg):
+    """For every current pixel: project into the reference image, fetch the
+    reference point/normal/curvature there, apply the four gates.
+
+    Returns (mask (H, W) bool, rp (3, H, W), rn (3, H, W)) with rp/rn in the
+    reference frame (the JAX ``_correspondences_gather``).
+    """
+    _, _, R, t = _split(params)
+    inside, idx = project_to_reference(cur_p, cur_valid, params, projector)
+    got = ref_table[idx.reshape(-1)].T.reshape(C_REF, projector.rows, projector.cols)
     rp, rn = got[0:3], got[3:6]
     ref_curv, ref_ok = got[6], got[7] > 0
 

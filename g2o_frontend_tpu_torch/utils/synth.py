@@ -1,6 +1,8 @@
 """Synthetic plane-scene depth rendering (counterpart of
 ``g2o_frontend_tpu/utils/synth.py``): analytic ray casting with exact
 ground truth, in numpy, returned as a float32 tensor on the asked device.
+Also the 640x480 bench pair of ``bench.py`` and the poses of its candidate
+batch, the scenes of ``chip_smoke.py`` and ``apps/profile_gather.py``.
 """
 from __future__ import annotations
 
@@ -8,6 +10,17 @@ import numpy as np
 import torch
 
 from ..pwn.projector import PinholeProjector
+from . import lie
+
+# The bench pair of bench.py:61-94: three planes, a known small motion.
+BENCH_PLANES = [
+    (np.array([0.0, 0.0, -1.0]), -2.5),
+    (np.array([-1.0, 0.0, 0.0]), -1.2),
+    (np.array([0.0, -1.0, 0.0]), -0.9),
+]
+BENCH_XI = (0.04, -0.02, 0.05, 0.01, 0.03, -0.02)
+CANDIDATE_SEED = 7
+K_CANDIDATES = 8  # the size of the bench pair's candidate batch
 
 # A closed "room" of 6 axis-aligned planes (normals point inward), with
 # asymmetric wall distances so that no 180-degree yaw fits as well.
@@ -21,7 +34,7 @@ ROOM_PLANES = [
 ]
 
 
-def render_planes_depth(T_wc, projector: PinholeProjector, planes=None, device="cpu"):
+def render_planes_depth(T_wc, projector: PinholeProjector, planes=None, device="cuda"):
     """Ray-cast planes (n, d) with n.p = d from camera pose T_wc (4x4 numpy)
     -> (H, W) float32 depth tensor on `device`, 0 where no plane is hit."""
     planes = planes if planes is not None else ROOM_PLANES
@@ -46,6 +59,35 @@ def render_planes_depth(T_wc, projector: PinholeProjector, planes=None, device="
         depth = np.minimum(depth, np.where(z > 0.05, z, np.inf))
     depth[~np.isfinite(depth)] = 0.0
     return torch.as_tensor(depth.astype(np.float32), device=device)
+
+
+def bench_projector():
+    """The 640x480 Kinect camera of the bench pair."""
+    H, W = 480, 640
+    return PinholeProjector(rows=H, cols=W, fx=525.0, fy=525.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5,
+                            min_distance=0.1, max_distance=10.0)
+
+
+def bench_depth(T_wc, device="cuda"):
+    """The bench pair's three planes seen from camera pose T_wc at 640x480."""
+    return render_planes_depth(T_wc, bench_projector(), BENCH_PLANES, device=device)
+
+
+def bench_pair(device="cuda"):
+    """The bench pair of ``bench.py:61-94``: (reference depth at the
+    identity, current depth at the known motion, projector, that motion as a
+    4x4 numpy pose)."""
+    T_gt = lie.se3_exp(torch.tensor(BENCH_XI, dtype=torch.float32)).numpy()
+    return bench_depth(np.eye(4), device), bench_depth(T_gt, device), bench_projector(), T_gt
+
+
+def candidate_poses(k, seed=CANDIDATE_SEED):
+    """k camera poses (k, 4, 4) float64 numpy, a few cm (sigma 3 cm) and
+    degrees (sigma 2 deg) around the identity, drawn from `seed`: the
+    reference poses of the bench pair's candidate batch."""
+    rng = np.random.default_rng(seed)
+    xis = np.concatenate([rng.normal(0.0, 0.03, (k, 3)), rng.normal(0.0, np.deg2rad(2.0), (k, 3))], 1)
+    return lie.se3_exp(torch.as_tensor(xis, dtype=torch.float32)).double().numpy()
 
 
 def default_projector(H=120, W=160):

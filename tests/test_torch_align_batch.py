@@ -51,7 +51,7 @@ torch.set_num_threads(1)
 
 
 def _port(c):
-    return convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()})
+    return convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()}, device="cpu")
 
 
 def _rel(a, b):

@@ -48,7 +48,7 @@ def scene():
     cur = depth_to_cloud(render_planes_depth(T, proj), proj, ccfg)
 
     def port(c):
-        return convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()})
+        return convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()}, device="cpu")
 
     return dict(proj=proj, ref=ref, cur=cur, T=T, tproj=convert.config_from(proj), tref=port(ref), tcur=port(cur))
 
@@ -102,7 +102,8 @@ def test_sums_other_configs_match_jax(scene, case):
         ccfg = ConverterConfig(min_image_radius=3, max_image_radius=8, min_points=12)
         ref, cur = (depth_to_cloud(render_planes_depth(T, proj), proj, ccfg, sensor_offset=jnp.asarray(offset))
                     for T in (np.eye(4), scene["T"]))
-        tref, tcur = (convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()}) for c in (ref, cur))
+        tref, tcur = (convert.cloud_from_numpy({k: np.asarray(v) for k, v in c._asdict().items()}, device="cpu")
+                      for c in (ref, cur))
     invT = _invTs(scene["T"])["perturbed"].astype(np.float32)
     m, rp, rn = ja._correspondences_gather(ref, cur, jnp.asarray(invT), proj, cfg)
     Hj, bj, cj, ij = ja._linearize_planar(m, rp, rn, cur, jnp.asarray(invT), cfg)

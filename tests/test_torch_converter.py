@@ -94,7 +94,7 @@ def test_synth_matches_jax():
     T = np.eye(4)
     T[:3, 3] = [0.1, -0.05, 0.2]
     np.testing.assert_array_equal(
-        tsynth.render_planes_depth(T, convert.config_from(proj)).numpy(),
+        tsynth.render_planes_depth(T, convert.config_from(proj), device="cpu").numpy(),
         np.asarray(render_planes_depth(T, proj)),
     )
     assert convert.config_from(proj) == tsynth.default_projector(H=48, W=64)

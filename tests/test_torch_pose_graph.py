@@ -57,7 +57,7 @@ def sim_graph():
     g, info = simulate_se3(SIM)
     assert info["n_closures"] >= 2
     arrays = {f.name: np.asarray(getattr(g, f.name)) for f in dataclasses.fields(g)}
-    return g, convert.pose_graph3d_from_numpy(arrays)
+    return g, convert.pose_graph3d_from_numpy(arrays, device="cpu")
 
 
 def _block_tridiag(n, d, seed):

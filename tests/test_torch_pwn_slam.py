@@ -268,7 +268,7 @@ def _jax_converter(orbit):
 
     def depth_to_cloud(depth, projector, ccfg):
         cloud = jdepth_to_cloud(jnp.asarray(np.asarray(depth)), j["proj"], j["ccfg"])
-        return convert.cloud_from_numpy({k: np.asarray(v) for k, v in cloud._asdict().items()})
+        return convert.cloud_from_numpy({k: np.asarray(v) for k, v in cloud._asdict().items()}, device="cpu")
 
     return depth_to_cloud
 
@@ -311,7 +311,7 @@ def test_orbit_trackers_part_at_the_converter(orbit):
     tclouds = [tdepth_to_cloud(torch.from_numpy(d), c["proj"], c["ccfg"]) for d in (ref_d, cur_d)]
     jax_on_jax = jalign(*jclouds, j["proj"], jnp.asarray(guess, jnp.float32), j["acfg"])
     assert float(jax_on_jax.translational_ratio) > 100.0
-    port_on_jax = talign(*(convert.cloud_from_numpy({k: np.asarray(v) for k, v in x._asdict().items()})
+    port_on_jax = talign(*(convert.cloud_from_numpy({k: np.asarray(v) for k, v in x._asdict().items()}, device="cpu")
                            for x in jclouds), c["proj"], torch.as_tensor(guess, dtype=torch.float32), c["acfg"])
     np.testing.assert_allclose(port_on_jax.T.numpy(), np.asarray(jax_on_jax.T), atol=1e-5)
     port_on_port = talign(*tclouds, c["proj"], torch.as_tensor(guess, dtype=torch.float32), c["acfg"])
