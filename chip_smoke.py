@@ -20,9 +20,11 @@ Phases, one line each or more, any failure exits non-zero:
   5. the tracker command line over the bundled 120-frame TUM sequence at
      scale 2 (ATE gate, per-frame and --scan modes) and, as slice 1's
      main-path run whose kernel launches are counted, at scale 1 (640x480);
-  6. kernel 2 (K candidate systems) at 640x480, K = 8 reference clouds
-     rendered around the identity against one current cloud: against its
-     plain version and against 8 kernel-1 calls;
+  6. kernel 2 (K candidate systems, the tiled design) at 640x480, K = 8
+     reference clouds rendered around the identity against one current
+     cloud: against its plain version, against 8 kernel-1 calls and against
+     the previous batch design, two launches bit-equal, and timed in turns
+     with the previous design;
   7. align_batch at 640x480, K = 8, against 8 serial align calls: T, inliers,
      launch counts, and the times of both;
   8. kernel 3 (the z-buffer linearizer) against its plain version on the
@@ -32,8 +34,9 @@ Phases, one line each or more, any failure exits non-zero:
      radius), then slice 2's main-path run: the loop closer with a 1 m
      radius over that map's keyframes and the hierarchical pose-graph
      solve, whose kernel-2 launches are counted; kernel 2 against its plain
-     version on the inputs of every one of those launches, and its times at
-     the largest batch; and the app's synthetic 40-frame orbit;
+     version on the inputs of every one of those launches (two launches
+     bit-equal), timed in turns with the previous batch design at each K of
+     the run; and the app's synthetic 40-frame orbit;
  10. the gather probes of apps/profile_gather.py: the TPU script's four
      probes at its shapes, each kernel bit-equal to its plain version (NaN in
      the same places), with in-range indices and with wrapped and
@@ -42,7 +45,8 @@ Phases, one line each or more, any failure exits non-zero:
      phase 6's K = 8 tables and phase 9's largest batch, each timed beside
      torch.gather and its bound; kernel 2's gather without its arithmetic
      on the inputs of phases 6 and 9, equal to its plain version and timed
-     in turns with kernel 2.
+     in turns with kernel 2, whose time it gives as a multiple of the
+     loads' alone.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -118,6 +122,21 @@ def compare_sums(phase, name, sk, sp, rtol=1e-3, per_row=True):
     return err
 
 
+def ptxas_lines(log):
+    """[(kernel name, its ptxas lines on registers, stack and spills)] from
+    nvcc's ``-Xptxas -v`` output; the name is taken from the mangled one."""
+    import re
+
+    kernels = [("(unnamed)", [])]
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?(?<!\d)\d+([a-z][a-z_]*_kernel)", ln)
+        if entry:
+            kernels.append((entry.group(1), []))
+        elif "registers" in ln or "spill" in ln:
+            kernels[-1][1].append(ln.replace("ptxas info    :", "").strip())
+    return [k for k in kernels if k[1]]
+
+
 def build_kernels():
     """Phase 2: one nvcc per CUDA source, all started together."""
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
@@ -130,8 +149,9 @@ def build_kernels():
         builds = [(mod, pool.submit(mod.build)) for mod in modules]
         for mod, fut in builds:
             lib, secs, log = fut.result()
-            ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-            say("build", f"{os.path.relpath(lib, REPO)} built in {secs:.1f} s; " + " | ".join(ptxas))
+            say("build", f"{os.path.relpath(lib, REPO)} built in {secs:.1f} s")
+            for name, lines in ptxas_lines(log):
+                say("build", f"  {name}: " + " | ".join(lines))
     say("build", f"{len(modules)} sources built in {time.perf_counter() - t0:.1f} s of wall time")
 
 
@@ -258,15 +278,21 @@ def candidates(ctx):
 
 
 def phase_kernel2(ctx):
-    """Phase 6: kernel 2 against its plain version and against K kernel-1
-    calls; times of kernel 2 and of its plain version. Keeps the tables and
-    params in ctx["k8"] for phase 10."""
+    """Phase 6: kernel 2 at K = 8 against its plain version, against K
+    kernel-1 calls and against the previous batch design, each at the plain
+    tolerance (inliers equal, H, b and chi2 within rtol 1e-3): the tiled
+    kernel adds each system's terms in another float32 order than kernel 1
+    and the previous design, whose blocks of 256 pixels agreed to the bit,
+    so the three no longer do; inliers, sums of ones, stay exact. Two
+    launches give the same bits. Times of the previous design and of kernel
+    2 in turns, and of the plain version. Keeps the tables and params in
+    ctx["k8"] for phase 10."""
     import numpy as np
     import torch
 
-    from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
+    from g2o_frontend_tpu_torch.apps.profile_gather import bit_equal, system_bytes
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
-    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms
+    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms, in_turns
     from g2o_frontend_tpu_torch.utils.synth import K_CANDIDATES
 
     proj, acfg, cur_packed = ctx["proj"], ctx["acfg"], ctx["cur_packed"]
@@ -275,26 +301,28 @@ def phase_kernel2(ctx):
     check(tuple(tables.shape) == (K_CANDIDATES, proj.rows * proj.cols, fa.C_REF), f"tables {tuple(tables.shape)}")
     params = fa.params_from_invT(torch.as_tensor(np.linalg.inv(ctx["T_true"]), dtype=torch.float32,
                                                  device=ctx["device"]))
-    sk = fa.fused_system_batch(cur_packed, tables, params, proj, acfg)
-    sp = fa.fused_system_batch_reference(cur_packed, tables, params, proj, acfg)
-    err = compare_sums("kernel 2", "vs plain", sk, sp)
-    ctx["k8"] = (cur_packed, tables, params, proj, acfg)
+    args = (cur_packed, tables, params, proj, acfg)
+    sk = fa.fused_system_batch(*args)
+    err = compare_sums("kernel 2", "vs plain", sk, fa.fused_system_batch_reference(*args))
+    ctx["k8"] = args
     single = torch.stack([fa.fused_system(cur_packed, tables[k], params[k], proj, acfg) for k in range(K_CANDIDATES)])
-    compare_sums("kernel 2", "vs kernel 1", sk, single, rtol=1e-6)
-    say("kernel 2", f"max abs diff against {K_CANDIDATES} kernel-1 calls: {float((sk - single).abs().max()):.3e}")
+    compare_sums("kernel 2", "vs kernel 1", sk, single)
+    old = fa._fused_system_batch_grid(*args)
+    compare_sums("kernel 2", "vs the previous batch kernel", sk, old)
+    check(bit_equal(sk, fa.fused_system_batch(*args)), "two launches of kernel 2 differ")
+    say("kernel 2", f"two launches bit-equal; max abs diff against {K_CANDIDATES} kernel-1 calls "
+        f"{float((sk - single).abs().max()):.3e}, against the previous batch kernel {float((sk - old).abs().max()):.3e}")
 
-    def kernel():
-        return fa.fused_system_batch(cur_packed, tables, params, proj, acfg)
-
-    def plain():
-        return fa.fused_system_batch_reference(cur_packed, tables, params, proj, acfg)
-
-    kernel_ms, plain_ms = graph_ms(kernel, params, 50), graph_ms(plain, params, 8)
+    kernel_ms, previous_ms = in_turns(lambda: fa.fused_system_batch(*args), lambda: fa._fused_system_batch_grid(*args),
+                                      params, 50)
+    plain_ms = graph_ms(lambda: fa.fused_system_batch_reference(*args), params, 8)
     n_bytes = system_bytes(cur_packed, params, proj, fa.N_SUMS)
     bound_ms, bound_by = bound(n_bytes, K_CANDIDATES * proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM)
-    say("timing", f"kernel 2, K={K_CANDIDATES} at 640x480, device ms per call by CUDA graph replays: kernel "
-        f"{kernel_ms:.6f}, plain {plain_ms:.6f}; bound {bound_ms:.6f} ({bound_by}, {n_bytes} B); "
-        f"max abs err vs plain {err:.3e}")
+    layout = fa.batch_layout(proj.rows, proj.cols, K_CANDIDATES)
+    say("timing", f"kernel 2, K={K_CANDIDATES} at 640x480 ({layout.blocks} blocks, {layout.group} candidates a block), "
+        f"device ms per call by CUDA graph replays in turns: kernel {kernel_ms:.6f}, previous batch kernel "
+        f"{previous_ms:.6f} ({previous_ms / kernel_ms:.2f}x), plain {plain_ms:.6f}; bound {bound_ms:.6f} "
+        f"({bound_by}, {n_bytes} B, {100 * bound_ms / kernel_ms:.1f}% of it); max abs err vs plain {err:.3e}")
 
 
 def phase_align_batch(ctx):
@@ -412,21 +440,22 @@ def phase_slam(ctx, out_dir):
     """Phase 9: PWN SLAM at 640x480. Returns kernel 2's launches on slice
     2's main path (the loop closer over the sequence's keyframe map), its
     max abs error against the plain version over every call of that run,
-    and its plain version's device time and its bound at the run's largest
-    batch (kernel 2's own time there is printed here and taken by phase 10).
-    Keeps that batch's inputs in ctx["k_max"] for phase 10."""
+    and at the run's largest batch its time and the previous batch
+    design's (in turns), its plain version's time and its bound. Also
+    times the two designs in turns at every other K of the run. Keeps the
+    largest batch's inputs in ctx["k_max"] for phase 10."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch.apps import pwn_odometry, pwn_slam
-    from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
+    from g2o_frontend_tpu_torch.apps.profile_gather import bit_equal, system_bytes
     from g2o_frontend_tpu_torch.graph.reflector import MapReflector
     from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.slam.map_closer import CloserConfig, MapCloser
     from g2o_frontend_tpu_torch.slam.map_merger import MapMerger
     from g2o_frontend_tpu_torch.slam.pwn_tracker import PwnTracker, PwnTrackerConfig
-    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms
+    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms, in_turns
 
     device = ctx["device"]
     r = pwn_slam.run([SEQ, "--device", "cuda", "--scale", "1", "--kf-fraction", "0.75",
@@ -492,30 +521,50 @@ def phase_slam(ctx, out_dir):
     check(len(calls) == launches, f"{len(calls)} kernel-2 calls recorded, {launches} launches counted")
 
     # kernel 2 against its plain version on every call of the closer's run,
-    # one line for each batch (its calls share one tables tensor)
+    # one line for each batch (its calls share one tables tensor); each
+    # call launched twice, bit-equal
     err, i = 0.0, 0
     for b in range(len(batches)):
         j = i
         while j < len(calls) and calls[j][1] is calls[i][1]:
             j += 1
         sk = torch.cat([fa.fused_system_batch(*c) for c in calls[i:j]])
+        check(bit_equal(sk, torch.cat([fa.fused_system_batch(*c) for c in calls[i:j]])),
+              f"closer batch {b}: two launches of kernel 2 differ")
         sp = torch.cat([fa.fused_system_batch_reference(*c) for c in calls[i:j]])
-        name = f"closer batch {b} (K={calls[i][1].shape[0]}, {j - i} calls)"
+        name = f"closer batch {b} (K={calls[i][1].shape[0]}, {j - i} calls, two launches bit-equal)"
         err = max(err, compare_sums("kernel 2", name, sk, sp, per_row=False))
         i = j
     check(i == len(calls), f"{len(calls) - i} kernel-2 calls outside the closer's batches")
-    # times at the closer's largest batch, its last (converged) system
-    cur_packed, tables, params, proj_, acfg_ = max(reversed(calls), key=lambda c: c[1].shape[0])
-    K = tables.shape[0]
-    ctx["k_max"] = (cur_packed, tables, params, proj_, acfg_)
-    kernel_ms = graph_ms(lambda: fa.fused_system_batch(cur_packed, tables, params, proj_, acfg_), params, 20)
+
+    # the tiled and the previous batch design in turns at each K of the run,
+    # on its last (converged) call of that K, after holding them equal there
+    last = {c[1].shape[0]: c for c in calls}
+    times = {}
+    for K in sorted(last):
+        c = last[K]
+        compare_sums("kernel 2", f"K={K} vs the previous batch kernel", fa.fused_system_batch(*c),
+                     fa._fused_system_batch_grid(*c), per_row=False)
+        times[K] = in_turns(lambda: fa.fused_system_batch(*c), lambda: fa._fused_system_batch_grid(*c), c[2], 20)
+        layout = fa.batch_layout(c[3].rows, c[3].cols, K)
+        say("timing", f"kernel 2 at K={K} ({layout.blocks} blocks, {layout.group} candidates a block), device ms per call "
+            f"by CUDA graph replays in turns: kernel {times[K][0]:.6f}, previous batch kernel {times[K][1]:.6f} "
+            f"({times[K][1] / times[K][0]:.2f}x)")
+    K = max(last)
+    slower = [k for k, (new, old) in times.items() if (new >= old if k == K else new > 1.05 * old)]
+    say("timing", f"kernel 2 against the previous batch kernel: faster at the largest batch (K={K}) and within 1.05x "
+        f"at every other K: {'yes' if not slower else 'no, at K=' + str(slower)}")
+
+    # the largest batch: its plain version's time and the bound
+    cur_packed, tables, params, proj_, acfg_ = ctx["k_max"] = last[K]
+    kernel_ms, previous_ms = times[K]
     plain_ms = graph_ms(lambda: fa.fused_system_batch_reference(cur_packed, tables, params, proj_, acfg_), params, 4)
     n_bytes = system_bytes(cur_packed, params, proj_, fa.N_SUMS)
     k2_bound = bound(n_bytes, K * proj_.rows * proj_.cols * OPS_PER_PIXEL_SYSTEM)
     say("timing", f"kernel 2 on the closer's largest batch, K={K} at {proj_.rows}x{proj_.cols}, device ms per call by "
-        f"CUDA graph replays: kernel {kernel_ms:.6f}, plain {plain_ms:.6f}; bound {k2_bound[0]:.6f} "
-        f"({k2_bound[1]}, {n_bytes} B)")
-    k2 = (launches, err, kernel_ms, plain_ms, k2_bound)
+        f"CUDA graph replays: kernel {kernel_ms:.6f}, previous {previous_ms:.6f}, plain {plain_ms:.6f}; bound "
+        f"{k2_bound[0]:.6f} ({k2_bound[1]}, {n_bytes} B, {100 * k2_bound[0] / kernel_ms:.1f}% of it)")
+    k2 = (launches, err, kernel_ms, previous_ms, plain_ms, k2_bound)
 
     syn = pwn_slam.run(["--synthetic", "--frames", "40", "--device", "cuda",
                         "--out-map", os.path.join(out_dir, "map_syn.npz"),
@@ -623,7 +672,7 @@ def run(out_dir):
     phase_kernel2(ctx)  # 6
     phase_align_batch(ctx)  # 7
     err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase_kernel3(ctx)  # 8
-    k2_launches, err2, k2_ms, k2_plain_ms, k2_bound = phase_slam(ctx, out_dir)  # 9
+    k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase_slam(ctx, out_dir)  # 9
     gather_entries = phase_gather(ctx)  # 10
 
     kernels = []
@@ -640,6 +689,7 @@ def run(out_dir):
             "replaces": f"g2o_frontend_tpu/{replaces}", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    kernels[1]["previous_ms"] = k2_previous_ms  # the previous batch design, in the same turns
     kernels += gather_entries
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")

@@ -12,6 +12,12 @@ exactly the JAX reference's ``_correspondences_gather`` followed by
   tensor they launch the hand-written kernels of ``csrc/fused_aligner.cu``
   (or raise); on a CPU tensor they take the plain version. They count
   their kernel launches in `launches` and `batch_launches`.
+- `batch_layout` is the batch kernel's launch geometry (tiles of current
+  pixels, candidate groups, scratch shape, limits), in Python so that the
+  CPU tests reach it; `fused_system_batch` launches with it and rejects
+  what it rejects, on any device.
+- `_fused_system_batch_grid` launches the previous batch design, kept only
+  as the batch kernel's timing yardstick.
 - `fused_system_reference` is the plain PyTorch version on the same inputs:
   `gather_correspondences` + `linearize_planar`;
   `fused_system_batch_reference` is K of them.
@@ -31,7 +37,9 @@ flags; importing this module needs neither nvcc nor a GPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from . import cuda_build, sym6
@@ -40,6 +48,19 @@ N_SUMS = 29
 C_CUR = 20
 C_REF = 8
 N_PARAMS = 24
+
+# The batch kernel's geometry (csrc/fused_aligner.cu, pwn_terms.cuh): 128
+# threads a block, 2 current pixels a thread, at most 8 candidates a block,
+# the reference records of 2 candidates held in shared memory. `_load`
+# holds the built library to the same threads, tile and group.
+BATCH_THREADS = 128
+BATCH_TILE = 2 * BATCH_THREADS
+BATCH_MAX_GROUP = 8
+BATCH_ROW_STAGES = 2
+# Groups are sized so that the grid gives each of one H100's 132 SMs the 5
+# blocks it holds at once where the candidates allow it.
+FILL_BLOCKS = 5 * 132
+MAX_K = 2**16 - 1  # the f64 reduction's grid (29, K)
 
 # kernel launches made on CUDA tensors since the last reset: by
 # `fused_system` (one system) and by `fused_system_batch` (K systems)
@@ -238,6 +259,83 @@ def fused_system_batch_reference(cur_packed, ref_tables, params, projector, cfg)
     )
 
 
+# -- the batch kernel's launch geometry ----------------------------------------------
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchLayout:
+    """The batch kernel's grid for K candidates of an H x W image: block b
+    takes tile ``b // n_groups`` of `tile` current pixels and candidate
+    group ``b % n_groups`` of `group` candidates (the last group may be
+    short); thread t of a block takes pixels ``base + q * BATCH_THREADS + t``
+    of its tile. Each block writes one row of the (K, n_tiles, 29)
+    scratch for each of its candidates."""
+
+    H: int
+    W: int
+    K: int
+    tile: int
+    n_tiles: int
+    group: int
+    n_groups: int
+
+    @property
+    def blocks(self):
+        return self.n_tiles * self.n_groups
+
+    @property
+    def scratch_shape(self):
+        return (self.K, self.n_tiles, N_SUMS)
+
+    @property
+    def smem_bytes(self):
+        """Shared memory a block takes: its threads' fetched reference
+        records, the tile's planes, its candidates' params rows, one 32-value
+        row per (candidate, warp)."""
+        records = BATCH_ROW_STAGES * self.tile * 4 * C_REF
+        return records + 4 * (C_CUR * self.tile + self.group * (N_PARAMS + BATCH_THREADS))
+
+    def pixels(self, b):
+        """The current pixels block b sums, as the kernel's threads take them."""
+        base = b // self.n_groups * self.tile
+        local = np.arange(self.tile // BATCH_THREADS)[:, None] * BATCH_THREADS + np.arange(BATCH_THREADS)
+        pix = base + local.reshape(-1)
+        return pix[pix < self.H * self.W]
+
+    def candidates(self, b):
+        """The candidates block b sums."""
+        k0 = b % self.n_groups * self.group
+        return range(k0, min(k0 + self.group, self.K))
+
+
+def batch_layout(H, W, K):
+    """The batch kernel's `BatchLayout` for K candidates of an H x W image.
+
+    Raises ValueError for K < 1, K beyond the reduction's grid (`MAX_K`),
+    or an image or K tables beyond the kernel's int32 indexing, which also
+    keeps the grid's block count in range. Groups take at most
+    `BATCH_MAX_GROUP` candidates and are as many as the card needs to fill
+    (`FILL_BLOCKS`), at most K.
+    """
+    n = H * W
+    if K < 1:
+        raise ValueError(f"the batch kernel needs at least one candidate, got K = {K}")
+    if K > MAX_K:
+        raise ValueError(f"K = {K} candidates exceed the batch kernel's grid (at most {MAX_K})")
+    if not 0 < C_CUR * n < 2**31:
+        raise ValueError(f"image size {H}x{W} out of the kernel's int32 range")
+    if K * n * C_REF >= 2**31:
+        raise ValueError(f"{K} candidates of {H}x{W} out of the kernel's int32 range")
+    n_tiles = _ceil_div(n, BATCH_TILE)
+    n_groups = min(K, max(_ceil_div(K, BATCH_MAX_GROUP), _ceil_div(FILL_BLOCKS, n_tiles)))
+    group = _ceil_div(K, n_groups)
+    return BatchLayout(H, W, K, BATCH_TILE, n_tiles, group, _ceil_div(K, group))
+
+
 # -- the kernels -----------------------------------------------------------------
 
 
@@ -259,8 +357,14 @@ def _load():
         lib.fused_aligner_blocks.restype = ctypes.c_int
         lib.fused_aligner_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + _GEOMETRY_ARGS
         lib.fused_aligner_launch.restype = ctypes.c_int
-        lib.fused_aligner_batch_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _GEOMETRY_ARGS
+        lib.fused_aligner_batch_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + _GEOMETRY_ARGS
         lib.fused_aligner_batch_launch.restype = ctypes.c_int
+        lib.fused_aligner_batch_grid_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _GEOMETRY_ARGS
+        lib.fused_aligner_batch_grid_launch.restype = ctypes.c_int
+        built = (lib.fused_aligner_batch_threads(), lib.fused_aligner_batch_tile(), lib.fused_aligner_batch_max_group())
+        if built != (BATCH_THREADS, BATCH_TILE, BATCH_MAX_GROUP):
+            raise RuntimeError(f"{SOURCE.name} has batch threads, tile and group {built}, batch_layout "
+                               f"{(BATCH_THREADS, BATCH_TILE, BATCH_MAX_GROUP)}")
         _lib = lib
     return _lib
 
@@ -285,8 +389,8 @@ def _check(cur_packed, ref_table, params, H, W, K=None):
         raise ValueError("ref_table must be 16-byte aligned (float4 loads)")
     if not 0 < C_CUR * H * W < 2**31:
         raise ValueError(f"image size {H}x{W} out of the kernel's int32 range")
-    if K is not None and not 0 < K * H * W * C_REF < 2**31:
-        raise ValueError(f"{K} candidates of {H}x{W} out of the kernel's int32 range")
+    if K is not None:
+        batch_layout(H, W, K)
 
 
 def _geometry(projector, cfg, dev):
@@ -338,29 +442,53 @@ def fused_system_batch(cur_packed, ref_tables, params, projector, cfg):
     """(K, 29) sums of K aligner systems against one shared current cloud.
 
     cur_packed (20, H, W), ref_tables (K, H*W, 8) and params (K, 24) are
-    float32 on one device. Row k equals `fused_system` of candidate k. A
+    float32 on one device. Row k equals `fused_system_reference` of
+    candidate k. K and the image must fit `batch_layout` on any device. A
     CUDA tensor launches the batch kernel on the current stream and does not
     synchronise; a CPU tensor takes `fused_system_batch_reference`.
     """
     global batch_launches
     dev = _device_of(cur_packed, "fused_system_batch")
+    H, W = projector.rows, projector.cols
+    layout = batch_layout(H, W, ref_tables.shape[0])
     if dev.type == "cpu":
         return fused_system_batch_reference(cur_packed, ref_tables, params, projector, cfg)
+    _check(cur_packed, ref_tables, params, H, W, layout.K)
+    lib = _load()
+    with torch.cuda.device(dev):
+        block_sums = torch.empty(layout.scratch_shape, dtype=torch.float32, device=dev)
+        out = torch.empty((layout.K, N_SUMS), dtype=torch.float32, device=dev)
+        err = lib.fused_aligner_batch_launch(
+            cur_packed.data_ptr(), ref_tables.data_ptr(), params.data_ptr(),
+            block_sums.data_ptr(), out.data_ptr(), layout.K, layout.group, H, W, *_geometry(projector, cfg, dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_aligner batch kernel launch failed: CUDA error {err}")
+    batch_launches += 1
+    return out
+
+
+def _fused_system_batch_grid(cur_packed, ref_tables, params, projector, cfg):
+    """`fused_system_batch` by the previous batch design (one block per
+    candidate and 256 pixels), on CUDA tensors only: the batch kernel's
+    timing yardstick, on no user path and not counted."""
+    dev = cur_packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"the previous batch kernel runs on CUDA tensors, got {dev}")
     H, W = projector.rows, projector.cols
     K = ref_tables.shape[0]
     _check(cur_packed, ref_tables, params, H, W, K)
     lib = _load()
     n_blocks = lib.fused_aligner_blocks(H * W)
     if n_blocks >= 2**16:
-        raise ValueError(f"image size {H}x{W} exceeds the batch kernel's grid")
+        raise ValueError(f"image size {H}x{W} exceeds the previous batch kernel's grid")
     with torch.cuda.device(dev):
         block_sums = torch.empty((K, n_blocks, N_SUMS), dtype=torch.float32, device=dev)
         out = torch.empty((K, N_SUMS), dtype=torch.float32, device=dev)
-        err = lib.fused_aligner_batch_launch(
+        err = lib.fused_aligner_batch_grid_launch(
             cur_packed.data_ptr(), ref_tables.data_ptr(), params.data_ptr(),
             block_sums.data_ptr(), out.data_ptr(), K, H, W, *_geometry(projector, cfg, dev),
         )
     if err != 0:
-        raise RuntimeError(f"fused_aligner batch kernel launch failed: CUDA error {err}")
-    batch_launches += 1
+        raise RuntimeError(f"previous fused_aligner batch kernel launch failed: CUDA error {err}")
     return out

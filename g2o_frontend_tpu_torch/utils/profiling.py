@@ -1,14 +1,16 @@
 """Tracing and device timing (counterpart of
 ``g2o_frontend_tpu/utils/profiling.py``).
 
-- `device_time`: seconds per call of ``f(*inputs)`` as the slope between an
-  n-call and an n//4-call run, so that what every run pays once cancels. On
+- `device_time`: seconds per call of ``f(*inputs)`` as the slope between
+  the least of a few n-call runs and the least of a few n//4-call runs, so
+  that what every run pays once cancels and a disturbed run drops out. On
   CUDA inputs each run is one CUDA graph replay timed by CUDA events: the
   JAX version's on-device ``fori_loop``, which keeps host dispatch out of
   the time; a graph replays every captured launch, so nothing is hoisted
   or dropped. On CPU inputs the runs are timed by the host clock (the
   caller asked for the CPU, as JAX's CPU backend would be). `graph_ms`
-  is the same in milliseconds per call of a function of no arguments.
+  is the same in milliseconds per call of a function of no arguments;
+  `in_turns` times two versions of a kernel that way in turns.
 - `trace`: ``torch.profiler`` around a block, writing a Chrome trace into a
   directory (the JAX version's ``jax.profiler`` trace directory).
 - `CumulativeTimer`: cumTime/numCalls accumulator (PwnMatcherBase parity).
@@ -31,7 +33,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 __all__ = [
-    "device_time", "graph_ms", "trace", "CumulativeTimer", "gpu_name_and_power_limit", "event_ms", "device_ms", "bound",
+    "device_time", "graph_ms", "in_turns", "trace", "CumulativeTimer", "gpu_name_and_power_limit", "event_ms", "device_ms", "bound",
     "CheckFailure", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "L2_BYTES",
 ]
 
@@ -94,10 +96,12 @@ def _host_runs(f, inputs, counts):
 
 
 def device_time(f, inputs, n: int = 20, reps: int = 3) -> float:
-    """Seconds per call of ``f(*inputs)``: the slope between an n-call and an
-    n//4-call run, the least of `reps` pairs. The device is that of the
-    first tensor in `inputs`. On CUDA, `f` must be capturable in a CUDA
-    graph (no host synchronisation)."""
+    """Seconds per call of ``f(*inputs)``: the slope between the least of
+    `reps` n-call runs and the least of `reps` n//4-call runs, taken in
+    turns. (The least of `reps` slopes would pick the run whose short
+    side was disturbed, down to a negative time.) The device is that of
+    the first tensor in `inputs`. On CUDA, `f` must be capturable in a
+    CUDA graph (no host synchronisation)."""
     n_small = max(n // 4, 1)
     dev = next((x.device for x in inputs if isinstance(x, torch.Tensor)), torch.device("cpu"))
     if dev.type == "cuda":
@@ -107,18 +111,25 @@ def device_time(f, inputs, n: int = 20, reps: int = 3) -> float:
         small, big = _host_runs(f, inputs, (n_small, n))
     else:
         raise ValueError(f"device_time runs on CPU or CUDA tensors, got {dev}")
-    best = float("inf")
+    t_small, t_big = float("inf"), float("inf")
     for _ in range(reps):
-        t_small = small()
-        t_big = big()
-        best = min(best, (t_big - t_small) / (n - n_small))
-    return best
+        t_small = min(t_small, small())
+        t_big = min(t_big, big())
+    return (t_big - t_small) / (n - n_small)
 
 
 def graph_ms(fn, like, n: int = 20) -> float:
     """Milliseconds per call of ``fn()`` by `device_time` on the device of
     the tensor `like`: on the card, the slope of CUDA graph replays."""
     return device_time(lambda _: fn(), [like], n=n) * 1e3
+
+
+def in_turns(new, old, like, n: int = 20):
+    """(new ms, old ms): `graph_ms` of two versions of a computation in
+    turns, old, new, new, old, each the lesser of its two, so that a
+    drift of the card's clock during the four runs falls on both."""
+    o1, n1, n2, o2 = graph_ms(old, like, n), graph_ms(new, like, n), graph_ms(new, like, n), graph_ms(old, like, n)
+    return min(n1, n2), min(o1, o2)
 
 
 @contextlib.contextmanager

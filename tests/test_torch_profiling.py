@@ -3,8 +3,8 @@ device defaults of the port's entry points.
 
 - `CumulativeTimer`: counts, sums and means equal to JAX's over the same
   sequence of calls, on one fake clock (exact);
-- `device_time` on CPU tensors: a finite time > 0 (the host clock; CUDA
-  graph replays are timed on the card by the probe app);
+- `device_time` and `in_turns` on CPU tensors: finite times > 0 (the host
+  clock; CUDA graph replays are timed on the card by the probe app);
 - `trace` writes a Chrome trace file;
 - every public function or class of the port that takes `device` defaults
   to "cuda", and so does every command line's ``--device``.
@@ -51,6 +51,7 @@ def test_device_time_on_cpu():
     a = torch.rand(128, 128)
     t = tprof.device_time(lambda x, y: x @ y, [a, a], n=20, reps=3)
     assert math.isfinite(t) and t > 0
+    assert all(math.isfinite(ms) and ms > 0 for ms in tprof.in_turns(lambda: a @ a, lambda: a + a, a, n=8))
     with pytest.raises(ValueError):
         tprof.device_time(lambda x: x, [a.to("meta")])
 
