@@ -46,7 +46,20 @@ Phases, one line each or more, any failure exits non-zero:
      torch.gather and its bound; kernel 2's gather without its arithmetic
      on the inputs of phases 6 and 9, equal to its plain version and timed
      in turns with kernel 2, whose time it gives as a multiple of the
-     loads' alone.
+     loads' alone;
+ 11. the rest of PWN at 640x480, each step also run by the port on the CPU
+     on the same inputs and compared: (a) `pwn_slam --conf` and
+     `pwn_odometry --conf` with g2o_frontend_tpu_torch/conf/pwn_slam_tum.conf
+     over the whole sequence, their kernel launches counted; (b) the map
+     merger's cloud fusion over phase 9's 1 m-radius keyframe map (each
+     fused pair a 614,400-slot model), ms per fusion and the share of
+     collapse decisions that differ from the CPU; (c) voxel downsampling of
+     each fused cloud at 0.02 and 0.1 m; (d) plane extraction on the bench
+     pair and five TUM frames, and the depth calibration over those frames;
+     (e) the manifold Voronoi extractor over the map's last 30 keyframes
+     (9.2 M points into the 100x100 grid at 0.2 m) and the diagram; (f) a
+     640x480 cloud through a `.pwn` file and back, bit-equal, and the
+     cloud_aligner command line on two TUM frames.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -62,6 +75,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEQ = os.path.join(REPO, "eval_out", "tum_seq")
+CONF = os.path.join(REPO, "g2o_frontend_tpu_torch", "conf", "pwn_slam_tum.conf")
 
 BENCH_INLIERS = 251124  # aligner inliers on the bench pair in the JAX package's bench record (BENCH_r05)
 EVAL_ATE_S2 = 0.346  # CPU tracker ATE on eval_out/tum_seq at --scale 2 (EVAL.md section 4)
@@ -458,12 +472,15 @@ def phase_slam(ctx, out_dir):
     from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms, in_turns
 
     device = ctx["device"]
+    fa.launches, fa.batch_launches = 0, 0
     r = pwn_slam.run([SEQ, "--device", "cuda", "--scale", "1", "--kf-fraction", "0.75",
                       "--out-map", os.path.join(out_dir, "map_s1.npz"),
                       "--out-traj", os.path.join(out_dir, "slam_s1.txt")])
+    ctx["app_launches"] = (fa.launches, fa.batch_launches)
     say("slam", f"app, scale 1 (640x480), default 3 m closer radius: frames {r['frames']}, keyframes "
         f"{r['keyframes']}, closures {r['closures']}, batches {r['batch_sizes']}, final chi2 {r['final_chi2']:.6g}, "
-        f"ATE {r['ate']['rmse']:.4f} m, {r['frames_per_s']:.2f} frames/s")
+        f"ATE {r['ate']['rmse']:.4f} m, {r['frames_per_s']:.2f} frames/s; kernel-1 launches {fa.launches}, "
+        f"kernel-2 launches {fa.batch_launches}")
     check(r["frames"] == 120 and np.isfinite(r["final_chi2"]), "the SLAM app run is incomplete")
 
     # slice 2's main path: loop closing over the 640x480 keyframe map with a
@@ -508,6 +525,7 @@ def phase_slam(ctx, out_dir):
     chi2, cg = reflector.optimize_hierarchical(iters=10, cg_iters=60)
     t_opt = time.perf_counter() - t0 - t_close
     launches = fa.batch_launches
+    ctx["slam"] = dict(tracker=tracker, nodes=nodes)  # the 1 m-radius map, for phase 11
     ate_after = keyframe_ate(nodes, timestamps)
     batches = closer.batch_sizes
     say("slam", f"closer, 1 m radius over {len(nodes)} keyframes: {len(batches)} batches, K {batches}, "
@@ -638,6 +656,338 @@ def phase_gather(ctx):
     }]
 
 
+def tum_pose(p7):
+    """4x4 pose of a TUM trajectory row (tx ty tz qx qy qz qw)."""
+    import numpy as np
+
+    x, y, z, w = p7[3:7] / np.linalg.norm(p7[3:7])
+    T = np.eye(4)
+    T[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                 [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                 [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+    T[:3, 3] = p7[:3]
+    return T
+
+
+def cpu_copy(x):
+    """A tensor, or a NamedTuple of tensors, copied to the CPU."""
+    return type(x)(*(t.cpu() for t in x)) if isinstance(x, tuple) else x.cpu()
+
+
+def median_ms(fn, runs=10):
+    """Median per-run milliseconds of `fn` by CUDA events."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.utils.profiling import event_ms
+
+    return float(np.median(event_ms(fn, runs)))
+
+
+def timed(fn):
+    """(fn(), its milliseconds by one pair of CUDA events)."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def close(a, b, rtol=1e-5):
+    """(a within `rtol` of b relative to b's largest magnitude, at least 1;
+    the max abs difference) for two tensors on any devices. A float32 sum
+    over N terms carries an error relative to the sum of the magnitudes,
+    not to each component: a centroid's small x beside its 2.5 m z."""
+    import torch
+
+    a, b = a.cpu().double(), b.cpu().double()
+    if not a.numel():
+        return True, 0.0
+    err = float((a - b).abs().max())
+    return err <= rtol * max(1.0, float(b.abs().max())), err
+
+
+def phase_conf_apps(ctx, out_dir):
+    """Phase 11 (a): both command lines with the reference-format conf at
+    scale 1 over the whole sequence, their kernel launches counted."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.apps import pwn_odometry, pwn_slam
+    from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+
+    fa.launches, fa.batch_launches = 0, 0
+    r = pwn_slam.run([SEQ, "--conf", CONF, "--device", "cuda", "--out-map", os.path.join(out_dir, "map_conf.npz"),
+                      "--out-traj", os.path.join(out_dir, "slam_conf.txt")])
+    k1, k2 = fa.launches, fa.batch_launches
+    say("pwn", f"(a) pwn_slam --conf pwn_slam_tum.conf (scale 1, 640x480): frames {r['frames']}, keyframes "
+        f"{r['keyframes']}, closures {r['closures']}, batches {r['batch_sizes']}, final chi2 {r['final_chi2']:.6g}, "
+        f"ATE {r['ate']['rmse']:.4f} m, {r['frames_per_s']:.2f} frames/s; kernel-1 launches {k1}, kernel-2 launches "
+        f"{k2} (phase 9's flag run: {ctx['app_launches'][0]} and {ctx['app_launches'][1]})")
+    check(r["frames"] == 120 and np.isfinite(r["final_chi2"]) and np.isfinite(r["ate"]["rmse"]),
+          "pwn_slam --conf run incomplete")
+    check(k1 >= ctx["per_align"] * (r["frames"] - 1), f"pwn_slam --conf launched kernel 1 {k1} times")
+    fa.launches = 0
+    o = pwn_odometry.run([SEQ, "--conf", CONF, "--device", "cuda", "--out", os.path.join(out_dir, "odo_conf.txt")])
+    say("pwn", f"(a) pwn_odometry --conf: frames {o['frames']}, keyframes {o['keyframes']}, ATE "
+        f"{o['ate']['rmse']:.4f} m, {o['frames_per_s']:.2f} frames/s; kernel-1 launches {fa.launches}")
+    check(o["frames"] == 120 and np.isfinite(o["ate"]["rmse"]), "pwn_odometry --conf run incomplete")
+    check(fa.launches == ctx["per_align"] * (o["frames"] - 1), f"pwn_odometry --conf launched kernel 1 {fa.launches} "
+          "times")
+
+
+def phase_fusion(ctx):
+    """Phase 11 (b) and (c): the map merger's cloud fusion over phase 9's
+    map, each fusion held against the CPU on its inputs; then voxel
+    downsampling of each fused cloud on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch.pwn.voxel import voxelize
+    from g2o_frontend_tpu_torch.slam import map_merger
+
+    tracker = ctx["slam"]["tracker"]
+    mgr = tracker.manager
+    # the gates: the JAX defaults, widened in proportion only if no accepted
+    # closure falls within them
+    scales = []
+    for rel in mgr.relations:
+        a, b = rel.node_from, rel.node_to
+        if rel.is_closure and rel.accepted and a.level == b.level == 0:
+            err = np.linalg.inv(a.transform) @ b.transform
+            dr = float(np.arccos(np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)))
+            scales.append(max(float(np.linalg.norm(err[:3, 3])) / 0.25, dr / 0.25))
+    check(scales, "no accepted closure in phase 9's map")
+    widen = max(1.0, min(scales) * (1 + 1e-9))
+    gates = (0.25 * widen, 0.25 * widen)
+    calls, fuse = [], map_merger.fuse_clouds
+
+    def recording(keep_c, drop_c, X, projector):
+        out = fuse(keep_c, drop_c, X, projector)
+        calls.append(((keep_c, drop_c, X, projector), out))
+        return out
+
+    map_merger.fuse_clouds = recording
+    try:
+        t0 = time.perf_counter()
+        n_fused = map_merger.MapMerger(mgr, cloud_cache=tracker.cache).collapse_redundant(*gates)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        map_merger.fuse_clouds = fuse
+    say("pwn", f"(b) MapMerger(cloud_cache=...).collapse_redundant over {len(ctx['slam']['nodes'])} keyframes, "
+        f"gates {gates[0]:.6g} m / {gates[1]:.6g} rad ({'the JAX defaults' if widen == 1.0 else 'widened'}; "
+        f"{sum(s <= 1 for s in scales)} of {len(scales)} accepted closures within the defaults): {n_fused} pairs "
+        f"fused in {secs:.3f} s")
+    check(n_fused >= 1 and len(calls) == n_fused, f"{n_fused} pairs fused, {len(calls)} fusions recorded")
+
+    worst_share, fusion_ms, voxel_ms = 0.0, [], {0.02: [], 0.1: []}
+    for i, (args, (depth, fused)) in enumerate(calls):
+        keep_c, drop_c, X, proj = args
+        n_pix = proj.rows * proj.cols
+        check(fused.capacity == 2 * n_pix, f"fusion {i}: a {fused.capacity}-slot model")
+        before, after = int(keep_c.valid.sum()) + int(drop_c.valid.sum()), int(fused.mask.sum())
+        fusion_ms.append(median_ms(lambda: fuse(*args)))
+        depth_c, fused_c = fuse(cpu_copy(keep_c), cpu_copy(drop_c), X.cpu(), proj)
+        differ = int((fused.mask.cpu() != fused_c.mask).sum())
+        worst_share = max(worst_share, differ / before)
+        both = fused.mask.cpu() & fused_c.mask
+        same_w = both & (fused.weights.cpu() == fused_c.weights)
+        pts_ok, pts_err = close(fused.points.cpu()[same_w], fused_c.points[same_w])
+        hit = (depth.cpu() > 0) & (depth_c > 0)
+        _, depth_err = close(depth.cpu()[hit], depth_c[hit])
+        changed = int(((depth - keep_c.p[2]).abs() > 1e-6)[keep_c.valid & (depth > 0)].sum())
+        say("pwn", f"(b) fusion {i}: {fused.capacity} slots, points {before} -> {after}, {fusion_ms[-1]:.3f} ms; "
+            f"survivor depth changed at {changed} pixels; against the CPU: {differ} collapse decisions differ "
+            f"({differ / before:.2e} of the points), weights differ at {int((both & ~same_w).sum())} survivors, "
+            f"points where weights agree within {pts_err:.3e}, depth where both hit within {depth_err:.3e}")
+        check(after < before and changed > 0, f"fusion {i} fused nothing")
+        check(differ / before < 1e-3 and int((both & ~same_w).sum()) <= differ, f"fusion {i}: decisions differ")
+        check(pts_ok, f"fusion {i}: points differ from the CPU by {pts_err}")
+        # (c) voxel downsampling of the fused cloud
+        for res in voxel_ms:
+            c, n, occ = voxelize(fused.points, fused.mask, res, 1 << 16)
+            voxel_ms[res].append(median_ms(lambda: voxelize(fused.points, fused.mask, res, 1 << 16)))
+            cc, nc, occ_c = voxelize(fused.points.cpu(), fused.mask.cpu(), res, 1 << 16)
+            c_ok, c_err = close(c[occ], cc[occ_c])
+            say("pwn", f"(c) fusion {i} at {res} m: {int(occ.sum())} voxels occupied of {1 << 16}, "
+                f"{voxel_ms[res][-1]:.3f} ms; against the CPU: occupancy and counts "
+                f"{'equal' if torch.equal(occ.cpu(), occ_c) and torch.equal(n.cpu(), nc) else 'DIFFER'}, centroids "
+                f"within {c_err:.3e}")
+            check(torch.equal(occ.cpu(), occ_c) and torch.equal(n.cpu(), nc) and c_ok,
+                  f"voxels of fusion {i} at {res} m differ from the CPU")
+    say("timing", f"(b) fusion of a pair (2 x {n_pix} slots), CUDA events, median per pair: "
+        f"{np.median(fusion_ms):.3f} ms (min {min(fusion_ms):.3f}, max {max(fusion_ms):.3f}); worst share of "
+        f"collapse decisions differing from the CPU {worst_share:.2e}; (c) voxelize median "
+        + ", ".join(f"{res} m {np.median(v):.3f} ms" for res, v in voxel_ms.items()))
+
+
+def phase_planes(ctx):
+    """Phase 11 (d): plane extraction on the bench pair and five TUM frames
+    at 640x480, and the depth calibration over those frames, each against
+    the CPU on the same inputs."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch.apps import pwn_odometry
+    from g2o_frontend_tpu_torch.io import tum
+    from g2o_frontend_tpu_torch.pwn.calibration import DepthCalibration
+    from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
+    from g2o_frontend_tpu_torch.pwn.planes import extract_planes
+
+    proj, ccfg, _ = pwn_odometry.configs(1, "kinect")
+    index = tum.read_depth_index(SEQ)
+    depths = [torch.as_tensor(tum.load_depth_png(os.path.join(SEQ, index[k][1])), device=ctx["device"])
+              for k in (0, 24, 48, 72, 96)]
+    clouds = [("bench ref", ctx["ref"]), ("bench cur", ctx["cur"])] + [
+        (f"TUM frame {k}", depth_to_cloud(d, proj, ccfg)) for k, d in zip((0, 24, 48, 72, 96), depths)]
+    times = []
+    for name, cloud in clouds:
+        ps = extract_planes(cloud)
+        times.append(median_ms(lambda: extract_planes(cloud)))
+        pc = extract_planes(cpu_copy(cloud))
+        same = torch.equal(ps.mask.cpu(), pc.mask) and torch.equal(ps.n_inliers.cpu(), pc.n_inliers)
+        # centroids within 1e-5; a refit's normal and d within 1e-4: the
+        # card sums the inliers' covariance in another float32 order, and a
+        # plane of a few thousand inliers turns by ~1e-5 (TUM frame 96)
+        errs = [close(getattr(ps, f), getattr(pc, f), rtol) for f, rtol in (("normal", 1e-4), ("d", 1e-4),
+                                                                            ("centroid", 1e-5))]
+        say("pwn", f"(d) extract_planes, {name}: {int(ps.mask.sum())} planes, inliers "
+            f"{[int(x) for x in ps.n_inliers[ps.mask].cpu()]}, {times[-1]:.3f} ms; against the CPU: mask and inliers "
+            f"{'equal' if same else 'DIFFER'}, normal / d / centroid within "
+            + " / ".join(f"{e:.2e}" for _, e in errs))
+        check(same and all(ok for ok, _ in errs), f"planes of {name} differ from the CPU")
+        check(int(ps.mask.sum()) >= 1, f"no plane in {name}")
+    cal, cal_c = DepthCalibration(proj, device=ctx["device"]), DepthCalibration(proj, device="cpu")
+    cal_ms, fractions = [], []
+    for d in depths:
+        fraction, ms = timed(lambda: cal.add_frame(d))
+        fractions.append(fraction)
+        cal_ms.append(ms)
+        fc = cal_c.add_frame(d.cpu())
+        check(abs(fractions[-1] - fc) < 1e-4, f"calibration fraction {fractions[-1]} vs the CPU's {fc}")
+    # each device converts the frames itself, so a pixel at the 10% gate
+    # may fall on either side: count the pixels beyond 1e-5
+    img, img_c = cal.calibration_image.cpu(), cal_c.calibration_image
+    beyond = int(((img - img_c).abs() > 1e-5).sum())
+    say("pwn", f"(d) DepthCalibration.add_frame over the five TUM frames: contributing fractions "
+        f"{[round(f, 4) for f in fractions]}, {np.median(cal_ms):.3f} ms median (CUDA events, one call each); "
+        f"calibration image against the CPU's: {beyond} of {img.numel()} pixels beyond 1e-5, max abs difference "
+        f"{float((img - img_c).abs().max()):.2e}; multipliers {float(img.min()):.4f}-{float(img.max()):.4f}")
+    check(beyond <= 1e-3 * img.numel() and bool(torch.isfinite(img).all()), "calibration image differs from the CPU")
+    say("timing", f"(d) extract_planes at 640x480, CUDA events, median of 10 runs per cloud: "
+        f"{np.median(times):.3f} ms (min {min(times):.3f}, max {max(times):.3f})")
+
+
+def phase_manifold(ctx):
+    """Phase 11 (e): the manifold Voronoi extractor over the last 30
+    keyframes of phase 9's map and the diagram, against the CPU."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch.slam import manifold_voronoi as mv
+
+    tracker = ctx["slam"]["tracker"]
+    nodes = [n for n in ctx["slam"]["nodes"] if n.level == 0][-30:]
+    # the grid is top-down in the key node's frame, z up: the clouds and
+    # poses go from the camera's optical frame (z forward, y down) to the
+    # body frame of a robot carrying it (x forward, z up). A cell keeps its
+    # highest point, so the room's ceiling (0.8 m above the camera) would
+    # cover every cell: points over 0.5 m are masked out
+    T_bc = np.zeros((4, 4))
+    T_bc[0, 2], T_bc[1, 0], T_bc[2, 1], T_bc[3, 3] = 1.0, -1.0, -1.0, 1.0
+    T_bc_dev = torch.as_tensor(T_bc, dtype=torch.float32, device=ctx["device"])
+    ex, ex_c = mv.ManifoldVoronoiExtractor(), mv.ManifoldVoronoiExtractor()
+    for n in nodes:
+        cloud = tracker.cache.get(n.payload["frame"]).transform(T_bc_dev)
+        cloud = cloud._replace(valid=cloud.valid & (cloud.p[2] < 0.5))
+        pose = n.transform @ np.linalg.inv(T_bc)
+        ex.add_keyframe(n.seq, cloud, pose)
+        ex_c.add_keyframe(n.seq, cloud._replace(p=cloud.p.cpu(), n=cloud.n.cpu(), valid=cloud.valid.cpu()), pose)
+    grids, grid = [], mv.manifold_grid
+
+    def recording(*args, **kw):
+        grids.append((args, kw))
+        return grid(*args, **kw)
+
+    mv.manifold_grid = recording
+    try:
+        data = ex.extract()
+    finally:
+        mv.manifold_grid = grid
+    (pts, nrm, val), kw = grids[0]
+    n_points = int(val.numel())
+    extract_ms = median_ms(ex.extract, 5)
+    grid_ms = median_ms(lambda: grid(pts, nrm, val, **kw), 5)
+    dist, edges, skel = mv.manifold_diagram(data.obstacle)
+    diagram_ms = median_ms(lambda: mv.manifold_diagram(data.obstacle), 5)
+    h_c, o_c = grid(pts.cpu(), nrm.cpu(), val.cpu(), **kw)
+    grid_same = torch.equal(data.height.cpu(), h_c) and torch.equal(data.obstacle.cpu(), o_c)
+    data_c = ex_c.extract()
+    cells_differ = int((data.height.cpu() != data_c.height).sum() + (data.obstacle.cpu() != data_c.obstacle).sum())
+    dist_c, edges_c, skel_c = mv.manifold_diagram(data.obstacle.cpu())
+    finite = torch.isfinite(dist_c)
+    dist_err = float((dist.cpu()[finite] - dist_c[finite]).abs().max()) if bool(finite.any()) else 0.0
+    edges_differ, skel_differ = int((edges.cpu() != edges_c).sum()), int((skel.cpu() != skel_c).sum())
+    # distances are square roots of integer sums of squares: equal up to
+    # the rounding of the square root
+    diagram_same = (torch.equal(torch.isfinite(dist).cpu(), finite) and dist_err <= 1e-6 * float(dist_c[finite].max())
+                    and edges_differ == skel_differ == 0)
+    cfg = ex.config
+    say("pwn", f"(e) manifold Voronoi over the last {len(nodes)} keyframes (body frame, z up): {n_points} points into the "
+        f"{cfg.x_size}x{cfg.y_size} grid at {cfg.resolution} m: {int(data.obstacle.sum())} obstacle cells, "
+        f"{int((data.height < mv._FREE_INIT).sum())} cells seen, {int(edges.sum())} Voronoi edge cells, "
+        f"{int(skel.sum())} skeleton cells; extract {extract_ms:.3f} ms, manifold_grid {grid_ms:.3f} ms, "
+        f"diagram {diagram_ms:.3f} ms (CUDA events, median of 5); against the CPU: manifold_grid on the same points "
+        f"{'equal' if grid_same else 'DIFFERS'}, the CPU's own extract differs at {cells_differ} cells; the diagram "
+        f"on the same grid: distances within {dist_err:.3e}, edges differ at {edges_differ} cells, the skeleton at "
+        f"{skel_differ}")
+    check(n_points == len(nodes) * 480 * 640, f"{n_points} points into the grid")
+    check(grid_same and diagram_same, "the manifold grid or diagram differs from the CPU")
+    check(cells_differ <= 0.01 * cfg.x_size * cfg.y_size, f"the CPU's extract differs at {cells_differ} cells")
+    check(int(data.obstacle.sum()) > 0 and int(edges.sum()) > 0, "an empty manifold grid or diagram")
+
+
+def phase_cloud_io(ctx, out_dir):
+    """Phase 11 (f): a 640x480 cloud through a `.pwn` file and back, and the
+    cloud_aligner command line on two TUM frames."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch.apps import cloud_aligner
+    from g2o_frontend_tpu_torch.io import tum
+    from g2o_frontend_tpu_torch.pwn import cloud_io
+
+    ref = ctx["ref"]
+    path, again = os.path.join(out_dir, "ref.pwn"), os.path.join(out_dir, "ref_again.pwn")
+    cloud_io.save_pwn(path, ref, T=ctx["T_gt"])
+    d = cloud_io.load_pwn(path)
+    valid = ref.valid.reshape(-1).cpu().numpy()
+    bit_equal = all(np.array_equal(d[k].view(np.uint32), getattr(ref, f).reshape(c, -1).T.cpu().numpy()[valid]
+                                   .reshape(d[k].shape).view(np.uint32))
+                    for k, f, c in (("points", "p", 3), ("normals", "n", 3), ("eigenvalues", "ev", 3),
+                                    ("curvature", "curv", 1)))
+    back = cloud_io.cloud_from_pwn(path, device=ctx["device"])
+    cloud_io.save_pwn(again, back, T=ctx["T_gt"])
+    with open(path, "rb") as first, open(again, "rb") as second:
+        same_bytes = first.read() == second.read()
+    say("pwn", f"(f) .pwn round trip of the bench reference cloud: {len(d['points'])} points, "
+        f"{os.path.getsize(path)} bytes; fields bit-equal: {bit_equal}; re-saved from cloud_from_pwn byte-equal: "
+        f"{same_bytes}")
+    check(bit_equal and same_bytes, "the .pwn round trip is not bit-equal")
+    index = tum.read_depth_index(SEQ)
+    r = cloud_aligner.run([os.path.join(SEQ, index[0][1]), os.path.join(SEQ, index[3][1]), "--device", "cuda"])
+    T = np.asarray(r["transform"])
+    _, gt = tum.read_trajectory(os.path.join(SEQ, "groundtruth.txt"))
+    T_gt = np.linalg.inv(tum_pose(gt[0])) @ tum_pose(gt[3])
+    t_err = float(np.linalg.norm(T[:3, 3] - T_gt[:3, 3]))
+    say("pwn", f"(f) cloud_aligner on TUM frames 0 and 3 at 640x480: inliers {r['inliers']}, chi2 {r['chi2']:.6g}, "
+        f"|t| {float(np.linalg.norm(T[:3, 3])):.4f} m, t_err against the ground truth {t_err:.3e} m, "
+        f"valid {r['valid']}")
+    check(np.isfinite(T).all() and r["valid"] and t_err < 0.01, f"cloud_aligner t_err {t_err} m")
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -674,6 +1024,13 @@ def run(out_dir):
     err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase_kernel3(ctx)  # 8
     k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase_slam(ctx, out_dir)  # 9
     gather_entries = phase_gather(ctx)  # 10
+    t11 = time.perf_counter()  # 11
+    phase_conf_apps(ctx, out_dir)
+    phase_fusion(ctx)
+    phase_planes(ctx)
+    phase_manifold(ctx)
+    phase_cloud_io(ctx, out_dir)
+    say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

@@ -9,12 +9,16 @@ the map checkpoint and the TUM trajectory, and prints one JSON line.
 
 Usage:
   python -m g2o_frontend_tpu_torch.apps.pwn_slam SEQ_DIR [--device cuda]
-      [--scale 4] [--sensor kinect] [--kf-fraction F] [--max-frames N]
-      [--optimize-each-n-keyframes 5] [--out-map M.npz] [--out-traj T.txt]
+      [--conf FILE | --scale 4 --sensor kinect] [--kf-fraction F]
+      [--max-frames N] [--optimize-each-n-keyframes 5] [--out-map M.npz]
+      [--out-traj T.txt]
   python -m g2o_frontend_tpu_torch.apps.pwn_slam --synthetic --frames 48
 
-The JAX app's ``--conf`` (a reference-format pipeline file) waits for the
-port of ``pwn/pipeline.py``.
+``--conf`` reads a reference-format boss pipeline file (``pwn/pipeline.py``):
+its projector at its scale, converter, aligner, closer and keyframe
+fraction. The depth images are downscaled by the conf's scale (the JAX app
+downscales them by ``--scale`` whatever the conf says, so there the two
+must agree).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from ..io import tum
 from ..io.checkpoint import save_map
 from ..pwn.aligner import AlignerConfig
 from ..pwn.converter import ConverterConfig
+from ..pwn.pipeline import load_pipeline
 from ..slam.map_closer import CloserConfig, MapCloser
 from ..slam.map_merger import MapMerger
 from ..slam.pwn_tracker import PwnTracker, PwnTrackerConfig
@@ -46,7 +51,8 @@ def _parser():
     ap.add_argument("--device", default="cuda", help="torch device of the clouds, alignments and solves")
     ap.add_argument("--synthetic", action="store_true", help="an orbit inside the synthetic room instead")
     ap.add_argument("--frames", type=int, default=48, help="frames of the synthetic orbit")
-    ap.add_argument("--scale", type=int, default=4, help="integer image downscale")
+    ap.add_argument("--conf", help="reference-format boss pipeline conf")
+    ap.add_argument("--scale", type=int, default=4, help="integer image downscale (without --conf)")
     ap.add_argument("--sensor", default="kinect", choices=sorted(tum.kinect_presets))
     ap.add_argument("--out-map", default="pwn_slam_map.npz")
     ap.add_argument("--out-traj", default="pwn_slam_traj.txt")
@@ -90,27 +96,32 @@ def run(argv=None) -> dict:
     """Parse `argv`, run the sequence, write the outputs; returns the result dict."""
     args = _parser().parse_args(argv)
     device = torch.device(args.device)
-    if args.synthetic:
+    kf_fraction = args.kf_fraction
+    if args.conf:
+        pipe = load_pipeline(args.conf)
+        proj, ccfg, acfg, scale = pipe.scaled_projector(), pipe.converter_config, pipe.aligner_config, pipe.scale
+        closer_cfg = pipe.closer_config or CloserConfig()
+        if pipe.tracker_config is not None and kf_fraction is None:
+            kf_fraction = pipe.tracker_config.new_frame_inliers_fraction
+    elif args.synthetic:
         proj, ccfg, acfg, closer_cfg = synthetic_configs()
+    else:
+        proj, ccfg, acfg = configs(args.scale, args.sensor)
+        closer_cfg, scale = CloserConfig(), args.scale
+    if args.synthetic:
         frames = [
             (k / 30.0, render_planes_depth(T, proj, device=device)) for k, T in enumerate(synthetic_orbit(args.frames))
         ]
     else:
         if args.seq_dir is None:
             raise SystemExit("pwn_slam: give a sequence directory or --synthetic")
-        proj, ccfg, acfg = configs(args.scale, args.sensor)
-        closer_cfg = CloserConfig()
         index = tum.read_depth_index(args.seq_dir)
         if args.max_frames:
             index = index[: args.max_frames]
-        frames = [
-            (ts, tum.load_depth_png(os.path.join(args.seq_dir, rel))[:: args.scale, :: args.scale])
-            for ts, rel in index
-        ]
+        frames = [(ts, tum.load_depth_png(os.path.join(args.seq_dir, rel))[::scale, ::scale]) for ts, rel in index]
 
     # synthetic orbits keep high overlap; the reference's 0.4 keyframe gate
     # would never fire there
-    kf_fraction = args.kf_fraction
     if kf_fraction is None:
         kf_fraction = 0.7 if args.synthetic else 0.4
     # minCloudInliers is a 640x480 scale-1 value (conf PwnTracker line);

@@ -1,12 +1,16 @@
 """State carried between the JAX package and the port.
 
 The PWN path has no weights: its state is clouds, configs, poses, pose
-graphs and maps. Clouds and `PoseGraph3D`s cross as dicts of numpy arrays
-keyed by their field names (the two packages share names and layouts);
-configs cross as any object with the port config's fields, JAX's included,
-read by attribute so that JAX is never imported. A `MapManager` crosses
-through the checkpoint archive that both packages read and write
-(`io.checkpoint.save_map` / `load_map`).
+graphs, maps, merged models and plane sets. Clouds, `PoseGraph3D`s,
+`MergedModel`s and `PlaneSet`s cross as dicts of numpy arrays keyed by
+their field names (the two packages share names and layouts); configs
+cross as any object with the port config's fields, JAX's included, read by
+attribute so that JAX is never imported. A `MapManager` crosses through the
+checkpoint archive that both packages read and write
+(`io.checkpoint.save_map` / `load_map`), any NamedTuple or dataclass of
+arrays through `io.checkpoint.save_pytree` / `load_pytree`, and a cloud the
+JAX package wrote as a reference `.pwn` file through
+`pwn.cloud_io.cloud_from_pwn` (the two packages' files are byte-equal).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from .graph.store import PoseGraph3D
 from .pwn.aligner import AlignerConfig
 from .pwn.cloud import Cloud
 from .pwn.converter import ConverterConfig
+from .pwn.merger import MergedModel
+from .pwn.planes import PlaneSet
 from .pwn.projector import PinholeProjector
 from .slam.map_closer import CloserConfig
 
@@ -28,17 +34,31 @@ _CONFIGS = (PinholeProjector, ConverterConfig, AlignerConfig, CloserConfig)
 def cloud_from_numpy(arrays, device="cuda") -> Cloud:
     """{field: array} (e.g. a JAX Cloud's ``_asdict()`` through numpy) -> Cloud
     on `device`; `valid` becomes bool, every other field float32."""
-    return Cloud(
-        **{
-            name: torch.as_tensor(np.array(arrays[name], bool if name == "valid" else np.float32), device=device)
-            for name in Cloud._fields
-        }
-    )
+    return Cloud(**_bool_or_f32(Cloud._fields, arrays, device, ("valid",)))
 
 
 def cloud_to_numpy(cloud: Cloud) -> dict:
     """Cloud -> {field: numpy array} on the host."""
     return {name: getattr(cloud, name).detach().cpu().numpy() for name in Cloud._fields}
+
+
+def _bool_or_f32(fields, arrays, device, bool_fields):
+    return {
+        name: torch.as_tensor(np.array(arrays[name], bool if name in bool_fields else np.float32), device=device)
+        for name in fields
+    }
+
+
+def merged_model_from_numpy(arrays, device="cuda") -> MergedModel:
+    """{field: array} (e.g. a JAX MergedModel's ``_asdict()`` through numpy)
+    -> MergedModel on `device`; `mask` becomes bool, the rest float32."""
+    return MergedModel(**_bool_or_f32(MergedModel._fields, arrays, device, ("mask",)))
+
+
+def plane_set_from_numpy(arrays, device="cuda") -> PlaneSet:
+    """{field: array} (e.g. a JAX PlaneSet's ``_asdict()`` through numpy) ->
+    PlaneSet on `device`; `mask` becomes bool, the rest float32."""
+    return PlaneSet(**_bool_or_f32(PlaneSet._fields, arrays, device, ("mask",)))
 
 
 def pose_graph3d_from_numpy(arrays, device="cuda") -> PoseGraph3D:

@@ -2,9 +2,10 @@
 ``g2o_frontend_tpu/ops/eigh3x3.py``).
 
 Trigonometric (Smith's) eigenvalues plus cross-product eigenvectors: pure
-elementwise math over whole images, branchless. `eigvals3x3` takes trailing
-(..., 3, 3) matrices (the aligner's 3x3 information blocks); the planar
-functions take sym6 channels (6, ...) (the converter's covariances).
+elementwise math over whole images, branchless. `eigvals3x3`, `smallest_eigenvector3x3` and `eigh3x3` take
+trailing (..., 3, 3) matrices (the aligner's 3x3 information blocks, the
+plane extractor's covariances); the planar functions take sym6 channels
+(6, ...) (the converter's covariances).
 """
 from __future__ import annotations
 
@@ -33,6 +34,54 @@ def eigvals3x3(A):
     """Eigenvalues of symmetric (..., 3, 3), ascending: (..., 3)."""
     lam = _eigvals(A[..., 0, 0], A[..., 0, 1], A[..., 0, 2], A[..., 1, 1], A[..., 1, 2], A[..., 2, 2])
     return torch.stack(lam, -1)
+
+
+def _eigenvector_for(A, lam, fallback):
+    """Null direction of (A - lam I) for trailing (..., 3, 3) A: the largest
+    cross product of two rows; `fallback` where all of them vanish."""
+    B = A - lam[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    r0, r1, r2 = B[..., 0, :], B[..., 1, :], B[..., 2, :]
+    c01 = torch.linalg.cross(r0, r1)
+    c02 = torch.linalg.cross(r0, r2)
+    c12 = torch.linalg.cross(r1, r2)
+    n01 = (c01 * c01).sum(-1)
+    n02 = (c02 * c02).sum(-1)
+    n12 = (c12 * c12).sum(-1)
+    v = torch.where((n01 >= n02)[..., None], c01, c02)
+    v = torch.where((n12 > torch.maximum(n01, n02))[..., None], c12, v)
+    nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return torch.where(nrm > 1e-10, v / torch.clamp_min(nrm, _EPS), fallback)
+
+
+def _unit(A, k):
+    """The k-th unit vector broadcast to A's batch: (..., 3)."""
+    return torch.eye(3, dtype=A.dtype, device=A.device)[k].expand(A.shape[:-2] + (3,))
+
+
+def smallest_eigenvector3x3(A):
+    """(eigenvalues ascending (..., 3), unit eigenvector of the smallest
+    (..., 3)) of symmetric (..., 3, 3): a plane's normal from its point
+    covariance."""
+    lam = eigvals3x3(A)
+    return lam, _eigenvector_for(A, lam[..., 0], _unit(A, 2))
+
+
+def eigh3x3(A):
+    """(eigenvalues ascending (..., 3), eigenvectors (..., 3, 3)) of symmetric
+    (..., 3, 3): columns are unit eigenvectors in the eigenvalues' order, the
+    third the cross product of the first two (a right-handed frame)."""
+    lam = eigvals3x3(A)
+    ex, ez = _unit(A, 0), _unit(A, 2)
+    v0 = _eigenvector_for(A, lam[..., 0], ez)
+    v1 = _eigenvector_for(A, lam[..., 1], ex)
+    # orthogonalize v1 against v0, with a degenerate-case fallback
+    v1 = v1 - (v1 * v0).sum(-1, keepdim=True) * v0
+    n1 = torch.linalg.vector_norm(v1, dim=-1, keepdim=True)
+    alt = torch.linalg.cross(v0, ez)
+    alt = torch.where(torch.linalg.vector_norm(alt, dim=-1, keepdim=True) > 1e-6, alt, torch.linalg.cross(v0, ex))
+    alt = alt / torch.clamp_min(torch.linalg.vector_norm(alt, dim=-1, keepdim=True), _EPS)
+    v1 = torch.where(n1 > 1e-6, v1 / torch.clamp_min(n1, _EPS), alt)
+    return lam, torch.stack([v0, v1, torch.linalg.cross(v0, v1)], -1)
 
 
 def eigvals3x3_planar(o):

@@ -15,11 +15,10 @@ trajectory revisits mapped space).
 - `collapse_redundant`: keyframe pairs joined by an ACCEPTED closure whose
   optimized poses coincide within the gates describe the same place; the
   newer node is retired and its relations are re-targeted onto the
-  survivor with the proper transform composition.
-
-The JAX merger can also fuse a retired node's cloud into the survivor's
-cache entry through ``pwn/merger.py``; that fusion waits for the port of
-``pwn/merger.py`` and is not done here.
+  survivor with the proper transform composition. With a `cloud_cache`,
+  the retired node's cloud is fused into the survivor's cache entry
+  through ``pwn/merger.py`` (the Merger2 depth collapse,
+  ``merger2.h:33-35``), on the cache's device.
 
 Retired nodes keep their seq slot but carry no relations and are flagged
 ``payload["merged_into"]``.
@@ -27,14 +26,30 @@ Retired nodes keep their seq slot but carry no relations and are flagged
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..graph.map_manager import MapManager, MapNode, MapRelation
+from ..pwn.merger import MergedModel, MergerConfig, add_cloud, collapse, empty_model
+
+
+def fuse_clouds(keep_cloud, drop_cloud, transform, projector) -> tuple[torch.Tensor, MergedModel]:
+    """The Merger2 depth collapse of two clouds: both in one model of twice
+    a cloud's pixels, `drop_cloud` mapped by the 4x4 `transform` (keep <-
+    drop), collapsed in the keep view with the default `MergerConfig`, and
+    the surviving points rendered by `projector`. Returns (fused depth
+    (H, W), the collapsed model)."""
+    model = empty_model(2 * keep_cloud.valid.numel(), dtype=keep_cloud.p.dtype, device=keep_cloud.p.device)
+    model = add_cloud(add_cloud(model, keep_cloud), drop_cloud, transform)
+    fused = collapse(model, projector, config=MergerConfig())
+    depth, _ = projector.project(fused.points, fused.mask)
+    return depth, fused
 
 
 class MapMerger:
-    def __init__(self, manager: MapManager, list_size: int = 5):
+    def __init__(self, manager: MapManager, list_size: int = 5, cloud_cache=None):
         self.manager = manager
         self.list_size = list_size
+        self.cache = cloud_cache
         self._group: list[MapNode] = []
         self._last_big: MapNode | None = None
         self.merged_pairs: list[tuple[int, int]] = []  # (kept, dropped)
@@ -95,6 +110,8 @@ class MapMerger:
                 continue
             keep, drop = (a, b) if a.seq <= b.seq else (b, a)
             self._retarget(keep, drop)
+            if self.cache is not None:
+                self._fuse_clouds(keep, drop)
             drop.payload["merged_into"] = keep.seq
             self.merged_pairs.append((keep.seq, drop.seq))
             merged += 1
@@ -119,6 +136,23 @@ class MapMerger:
                 node_from=node_from, node_to=node_to, transform=T, information=r.information,
                 is_closure=r.is_closure, accepted=r.accepted, payload=r.payload,
             ))
+
+    def _fuse_clouds(self, keep: MapNode, drop: MapNode):
+        """Merger2 role (``merger2.h:33-35``): depth-collapse the retired
+        node's cloud into the survivor's view and store the fused depth back
+        in the cache, which derives the survivor's cloud from it anew. A
+        pair whose frames the cache does not hold is left unfused; a fusion
+        that fails raises."""
+        kf = keep.payload.get("frame")
+        df = drop.payload.get("frame")
+        if kf is None or df is None or kf not in self.cache or df not in self.cache:
+            return
+        keep_c = self.cache.get(kf)
+        X = torch.as_tensor(np.linalg.inv(keep.transform) @ drop.transform, dtype=torch.float32,
+                            device=keep_c.p.device)
+        depth, _ = fuse_clouds(keep_c, self.cache.get(df), X, self.cache.projector)
+        self.cache.put(kf, depth)
+        self.cache._clouds.pop(kf, None)  # recompute the cloud from the fused depth
 
     def active_nodes(self, level: int = 0) -> list[MapNode]:
         return [n for n in self.manager.nodes if n.level == level and n.payload.get("merged_into") is None]

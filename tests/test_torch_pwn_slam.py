@@ -6,7 +6,9 @@ of the kernels.
 
 Tolerances:
 - the map-manager copy reproduces tests/test_pwn_slam.py::TestMapManager
-  exactly, and is the JAX module's code apart from its docstring;
+  exactly; it and the copies of io/tum.py, io/boss.py, io/image_codec.py,
+  graph/pipeline.py and ops/voronoi_graph.py are the JAX modules' code
+  apart from their docstrings;
 - `save_map` from either package loads in the other: every node pose,
   level, payload, relation and consensus counter equal;
 - `MapMerger.collapse_redundant` retires the same nodes and re-targets the
@@ -102,7 +104,8 @@ def test_map_manager_callbacks():
     assert seen == [("n", 0), ("n", 1), ("r",)]
 
 
-@pytest.mark.parametrize("module", ["graph/map_manager.py", "io/tum.py"])
+@pytest.mark.parametrize("module", ["graph/map_manager.py", "io/tum.py", "io/boss.py", "io/image_codec.py",
+                                    "graph/pipeline.py", "ops/voronoi_graph.py"])
 def test_host_module_copies_match_jax(module):
     """The port keeps its own copies of these numpy-only modules; apart from
     the module docstring their code is the JAX package's."""
