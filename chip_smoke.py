@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1),
-PWN SLAM with loop closing (slice 2) and the gather probes.
+PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN and
+the 2D pose-graph backend (slice 3).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -59,7 +60,22 @@ Phases, one line each or more, any failure exits non-zero:
      (e) the manifold Voronoi extractor over the map's last 30 keyframes
      (9.2 M points into the 100x100 grid at 0.2 m) and the diagram; (f) a
      640x480 cloud through a `.pwn` file and back, bit-equal, and the
-     cloud_aligner command line on two TUM frames.
+     cloud_aligner command line on two TUM frames;
+ 12. the 2D pose-graph backend (no kernel: plain PyTorch and cuSOLVER) at
+     victoriaPark's counts, a simulated world of 7,120 poses and 151
+     landmarks (21,662 DOF): (a) the world through write_g2o and back,
+     the native parser (g++ build from the checkout) equal to the Python
+     one; (b) optimize_se2_schur and optimize_se2_direct each within 1.01x
+     the float64 host control, the Schur run repeated on the CPU (traces
+     within rtol 1e-3), the dense solve against its CPU run on a 1,000-pose
+     world; (c) the pose-only world through optimize_se2 with both
+     preconditioners against the CPU; (d) landmark_covariance_se2 against
+     the CPU and graph_optimizer --device cuda on the file; (e) optimize_se3
+     (chain) on bench.py's 300-pose world and on the default 2,000-pose
+     world against the float64 control, and graph_optimizer on an SE3
+     file. Each solve prints its wall ms by CUDA events, LM and CG
+     iterations and LM iterations/s, and the device ms, device operations
+     and busy share of one LM iteration under torch.profiler.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -988,6 +1004,243 @@ def phase_cloud_io(ctx, out_dir):
     check(np.isfinite(T).all() and r["valid"] and t_err < 0.01, f"cloud_aligner t_err {t_err} m")
 
 
+# Phase 12's iteration caps: each gate is met inside them on the CPU at the
+# same sizes (the Schur solve passes 1.01x the control by its 12th LM
+# iteration, the dense one by its 3rd). The runs held against the CPU
+# start at lambda 1e-4, not the solvers' 1e-6: there the first steps are
+# float32 solves of a nearly undamped system, and their chi2 moves with
+# the summation order alone (permuting the edges on the CPU moved the
+# Schur trace by 0.78% at iteration 3 and the 1,000-pose dense one by 1.7%
+# at iteration 1); from 1e-4 the same permutation moves them by at most
+# 4.0e-4 and 1.3e-4.
+SCHUR_CAPS = dict(iters=14, cg_iters=200, lm_lambda0=1e-4)
+DIRECT_ITERS = 30
+DIRECT_VS_CPU = dict(iters=30, lm_lambda0=1e-4)
+PCG_CAPS = dict(iters=10, cg_iters=60)  # the pose-only world, both preconditioners (not gated)
+SE3_300_CAPS = dict(iters=10, cg_iters=100, precond="chain")
+SE3_2000_CAPS = dict(iters=10, cg_iters=100, precond="chain")  # not gated
+VICTORIA = dict(n_poses=7120, n_landmarks=151, world_size=60.0, seed=0)  # victoriaPark's counts (bench.py:396)
+BENCH_SE3 = dict(n_poses=300, seed=0, world_size=20.0, closure_min_gap=50, closure_radius=3.5, closure_prob=0.9)
+
+
+def profiled(fn):
+    """(fn(), wall ms by CUDA events, device ms and device operations that
+    torch.profiler's CUDA activity records) of one call. Only the CUDA
+    activity is traced, so that host dispatch runs at its own speed.
+    Turning a trace into its events costs ~1 ms of host time for each
+    thousand, so phase 12 traces one LM iteration of a solve, not all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall = timed(fn)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    device = sum(e.device_time_total for e in kernels) / 1000.0
+    check(device > 0, "torch.profiler recorded no device time")
+    return out, wall, device, sum(e.count for e in kernels)
+
+
+def host_s(fn):
+    """(fn(), its seconds by the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def solve_line(name, solve, one_iteration, lm_of, cg_of=None):
+    """Run `solve` once timed by CUDA events, and `one_iteration` (the same
+    solve capped at one LM iteration) once under torch.profiler; one line
+    with the wall ms, LM and CG iterations and LM iterations/s of the
+    first, and the device ms, device operations and busy share of the
+    second. Returns (the solve's result, the line)."""
+    out, wall = timed(solve)
+    _, wall1, dev1, ops1 = profiled(one_iteration)
+    lm = lm_of(out[1])
+    cg = f", CG iterations {cg_of(out[1])}" if cg_of else ""
+    return out, (f"{name}: wall {wall:.3f} ms (CUDA events), LM iterations {lm}{cg}, {1000.0 * lm / wall:.2f} LM "
+                 f"iterations/s; one LM iteration under torch.profiler: wall {wall1:.3f} ms, device {dev1:.3f} ms "
+                 f"({100.0 * dev1 / wall1:.1f}% busy), {ops1} device operations")
+
+
+def trace_close(a, b, rtol):
+    """Two chi2 traces within `rtol` elementwise; their largest relative
+    difference. Prints both where they are not."""
+    a, b = a.cpu().double(), b.cpu().double()
+    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    if rel > rtol:
+        say("backend", f"traces: card {a.tolist()}, CPU {b.tolist()}")
+    return rel <= rtol, rel
+
+
+def logs_equal(a, b):
+    """Field-by-field equality of two G2OLogs."""
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) and not (x.shape == y.shape and np.array_equal(x, y)):
+            return f.name
+    return None
+
+
+def phase_backend(ctx, out_dir):
+    """Phase 12: slice 3, the 2D pose-graph backend at victoriaPark's size
+    (7,120 poses, 151 landmarks, 21,662 DOF) on a simulated world. (a) The
+    world through write_g2o and back through the native and the Python
+    parsers; (b) optimize_se2_schur and optimize_se2_direct against the
+    float64 control, Schur again on the CPU, the dense solve on a 1,000-pose
+    world on both; (c) the pose-only world through optimize_se2 (jacobi,
+    chain) on both; (d) landmark_covariance_se2 on both, graph_optimizer on
+    the written file; (e) optimize_se3 (chain) on bench.py's 300-pose world
+    and on the default 2,000-pose world against the control, and
+    graph_optimizer on an SE3 file."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch import native
+    from g2o_frontend_tpu_torch.apps import graph_optimizer
+    from g2o_frontend_tpu_torch.graph.store import graph2d_from_log
+    from g2o_frontend_tpu_torch.io import g2o
+    from g2o_frontend_tpu_torch.slam.simulator import Simulator3DConfig, SimulatorConfig, simulate, simulate_se3
+    from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+    from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+    from g2o_frontend_tpu_torch.solvers.control import control_optimize_se2, control_optimize_se3
+
+    device, t12 = ctx["device"], time.perf_counter()
+
+    # (a) the world, its file and the two parsers
+    lib, build_s = host_s(native.build)
+    world = simulate(SimulatorConfig(**VICTORIA))
+    path = os.path.join(out_dir, "victoria_sim.g2o")
+    g2o.write_g2o(path, world.to_g2o_log())
+    fast, native_s = host_s(lambda: g2o._read_g2o_native(path))
+    slow, python_s = host_s(lambda: g2o.read_g2o(path, native=False))
+    check(fast is not None, "the native parser returned nothing")
+    differ = logs_equal(fast, slow)
+    check(differ is None, f"native and Python parses differ in {differ}")
+    n_dof = 3 * len(fast.se2_ids) + 2 * len(fast.xy_ids)
+    say("backend", f"(a) native parser {os.path.relpath(lib, REPO)} (built in {build_s:.2f} s); world: "
+        f"{len(fast.se2_ids)} poses, {len(world.odom_edges)} odometry and {len(world.closure_edges)} closure edges, "
+        f"{len(fast.xy_ids)} landmarks, {len(world.observations)} landmark observations, {n_dof} DOF; file "
+        f"{os.path.getsize(path)} B; parse ms native {1000 * native_s:.1f}, Python {1000 * python_s:.1f}; equal")
+    check(n_dof == 21662, f"{n_dof} DOF, not 21,662")
+
+    # (b) Schur and dense solves against the float64 control
+    g, _ = graph2d_from_log(fast, device=device)
+    gc, _ = graph2d_from_log(fast, device="cpu")
+    ctl, ctl_s = host_s(lambda: control_optimize_se2(gc))
+    say("backend", f"(b) control_optimize_se2 (float64, host): chi2 {ctl['chi2']:.6f} in {ctl['iters']} LM "
+        f"iterations, {ctl_s:.2f} s")
+    woodbury = 2 * g.landmarks.shape[0] <= sp.WOODBURY_MAX_DIM
+    (_, ss), line = solve_line(f"(b) optimize_se2_schur {SCHUR_CAPS}, Woodbury {woodbury}",
+                               lambda: sp.optimize_se2_schur(g, **SCHUR_CAPS),
+                               lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS, "iters": 1}),
+                               lambda st: st.lm_iters, lambda st: st.cg_iters)
+    ratio = float(ss.chi2[-1]) / ctl["chi2"]
+    say("backend", line + f"; chi2 {float(ss.chi2[-1]):.6f}, {ratio:.6f}x the control")
+    check(ratio <= 1.01, f"optimize_se2_schur reached {ratio:.6f}x the control")
+    (_, ssc), cpu_s = host_s(lambda: sp.optimize_se2_schur(gc, **SCHUR_CAPS))
+    ok, rel = trace_close(ss.chi2, ssc.chi2, 1e-3)
+    say("backend", f"(b) optimize_se2_schur on the CPU: {cpu_s:.2f} s, {ssc.lm_iters} LM / {ssc.cg_iters} CG "
+        f"iterations; traces within rtol {rel:.2e} (limit 1e-3)")
+    check(ok, f"Schur traces of the card and the CPU differ by {rel:.2e}")
+    torch.cuda.reset_peak_memory_stats()
+    (_, sd), line = solve_line(f"(b) optimize_se2_direct (iters={DIRECT_ITERS}, dense {n_dof}^2 float32 Cholesky)",
+                               lambda: pg.optimize_se2_direct(g, iters=DIRECT_ITERS),
+                               lambda: pg.optimize_se2_direct(g, iters=1), lambda st: st.cg_iters)
+    ratio = float(sd.chi2[-1]) / ctl["chi2"]
+    say("backend", line + f"; chi2 {float(sd.chi2[-1]):.6f}, {ratio:.6f}x the control; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(ratio <= 1.01, f"optimize_se2_direct reached {ratio:.6f}x the control")
+    small = simulate(SimulatorConfig(**{**VICTORIA, "n_poses": 1000})).to_g2o_log()
+    g1, _ = graph2d_from_log(small, device=device)
+    g1c, _ = graph2d_from_log(small, device="cpu")
+    (_, s1), line = solve_line(f"(b) optimize_se2_direct {DIRECT_VS_CPU}, 1,000-pose world "
+                               f"({3 * 1000 + 2 * len(small.xy_ids)} DOF)",
+                               lambda: pg.optimize_se2_direct(g1, **DIRECT_VS_CPU),
+                               lambda: pg.optimize_se2_direct(g1, **{**DIRECT_VS_CPU, "iters": 1}),
+                               lambda st: st.cg_iters)
+    (_, s1c), cpu_s = host_s(lambda: pg.optimize_se2_direct(g1c, **DIRECT_VS_CPU))
+    ok, rel = trace_close(s1.chi2, s1c.chi2, 1e-3)
+    say("backend", line + f"; CPU {cpu_s:.2f} s, {s1c.cg_iters} LM iterations; traces within rtol {rel:.2e} "
+        "(limit 1e-3)")
+    check(ok, f"dense traces of the card and the CPU differ by {rel:.2e}")
+
+    # (c) the pose-only world through PCG, both preconditioners
+    pose_only = world.to_g2o_log(with_landmarks=False)
+    g0, _ = graph2d_from_log(pose_only, device=device)
+    g0c, _ = graph2d_from_log(pose_only, device="cpu")
+    ctl0 = control_optimize_se2(g0c)
+    for precond in ("jacobi", "chain"):
+        (_, s0), line = solve_line(f"(c) optimize_se2 pose-only ({len(pose_only.edge_se2_ij)} edges), {precond} "
+                                   f"{PCG_CAPS}", lambda: pg.optimize_se2(g0, precond=precond, **PCG_CAPS),
+                                   lambda: pg.optimize_se2(g0, precond=precond, **{**PCG_CAPS, "iters": 1}),
+                                   lambda st: PCG_CAPS["iters"], lambda st: st.cg_iters)
+        (_, s0c), cpu_s = host_s(lambda: pg.optimize_se2(g0c, precond=precond, **PCG_CAPS))
+        ok, rel = trace_close(s0.chi2, s0c.chi2, 1e-3)
+        say("backend", line + f"; chi2 {float(s0.chi2[-1]):.4f}, {float(s0.chi2[-1]) / ctl0['chi2']:.4f}x the control "
+            f"({ctl0['chi2']:.4f}; not gated); CPU {cpu_s:.2f} s, traces within rtol {rel:.2e} (limit 1e-3)")
+        check(ok, f"{precond} traces of the card and the CPU differ by {rel:.2e}")
+
+    # (d) the landmark covariance and the command line
+    cov, wall, dev, ops = profiled(lambda: sp.landmark_covariance_se2(g))
+    cov_c = sp.landmark_covariance_se2(gc)
+    # the landmarks that some pose observes (an unobserved one keeps its
+    # damping's 1e10 variance in both packages)
+    seen = torch.unique(gc.pl_ij[:, 1])
+    cov, cov_c = cov.cpu()[seen][:, :, seen], cov_c[seen][:, :, seen]
+    blocks = cov.double()[torch.arange(len(seen)), :, torch.arange(len(seen)), :]
+    sym = float((blocks - blocks.transpose(1, 2)).abs().max() / blocks.abs().max())
+    pd = bool((torch.linalg.eigvalsh(0.5 * (blocks + blocks.transpose(1, 2))) > 0).all())
+    err, top = float((cov - cov_c).abs().max()), float(cov_c.abs().max())
+    say("backend", f"(d) landmark_covariance_se2 ({g.landmarks.shape[0]} landmarks, {len(seen)} observed): wall "
+        f"{wall:.3f} ms, device {dev:.3f} ms, device operations {ops} (torch.profiler); finite "
+        f"{bool(torch.isfinite(cov).all())}, diagonal blocks asymmetric by {sym:.2e} of the largest entry, PD {pd}; "
+        f"against the CPU max abs diff {err:.3e}, {err / top:.2e} of the largest entry {top:.3e} (limit 1e-3)")
+    check(bool(torch.isfinite(cov).all()) and sym <= 1e-4 and pd, "landmark covariance not finite, symmetric and PD")
+    check(err <= 1e-3 * top, f"landmark covariance differs from the CPU by {err / top:.2e} of its largest entry")
+    out, app_s = host_s(lambda: graph_optimizer.run([path, "-o", os.path.join(out_dir, "victoria_opt.g2o"),
+                                                      "--device", "cuda"]))
+    direct = float(pg.optimize_se2(g, iters=15, cg_iters=100)[1].chi2[-1])
+    rel = abs(out["chi2_final"] - direct) / direct
+    say("backend", f"(d) graph_optimizer --device cuda on the file: {app_s:.2f} s, chi2 {out['chi2_initial']:.6g} -> "
+        f"{out['chi2_final']:.6f}; a direct optimize_se2 call (the app's 15 / 100 iterations) {direct:.6f}, "
+        f"rel diff {rel:.2e} (limit 1e-3: the card's scatter-adds sum in no fixed order)")
+    check(rel <= 1e-3 and out["chi2_final"] < out["chi2_initial"], "graph_optimizer disagrees with optimize_se2")
+
+    # (e) SE3
+    for label, cfg, caps in (("bench.py's 300-pose world", Simulator3DConfig(**BENCH_SE3), SE3_300_CAPS),
+                             ("the default 2,000-pose world", Simulator3DConfig(), SE3_2000_CAPS)):
+        g3, info = simulate_se3(cfg, device=device)
+        ctl3 = control_optimize_se3(type(g3)(*(getattr(g3, f.name).cpu() for f in dataclasses.fields(g3))),
+                                    max_iters=60)
+        (_, s3), line = solve_line(f"(e) optimize_se3 on {label} ({info['n_edges']} edges, {info['n_closures']} "
+                                   f"closures) {caps}", lambda: pg.optimize_se3(g3, **caps),
+                                   lambda: pg.optimize_se3(g3, **{**caps, "iters": 1}), lambda st: caps["iters"],
+                                   lambda st: st.cg_iters)
+        ratio = float(s3.chi2[-1]) / ctl3["chi2"]
+        say("backend", line + f"; chi2 {float(s3.chi2[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x")
+        check(np.isfinite(ratio), "non-finite SE3 chi2")
+        if cfg.n_poses == 300:  # the gate of bench.py's SE3 world (the 2,000-pose one is only reported)
+            check(ratio <= 1.01, f"optimize_se3 on the 300-pose world reached {ratio:.6f}x the control")
+            poses, e = g3.poses.cpu().double().numpy(), g3.pp_ij.shape[0]
+            log3 = g2o.G2OLog(se3_ids=np.arange(len(poses)), se3_poses=poses, edge_se3_ij=g3.pp_ij.cpu().numpy(),
+                              edge_se3_meas=g3.pp_meas.cpu().double().numpy(),
+                              edge_se3_info=g3.pp_info.cpu().double().numpy().reshape(e, 6, 6),
+                              fixed_ids=np.array([0]))
+            path3 = os.path.join(out_dir, "se3_300.g2o")
+            g2o.write_g2o(path3, log3)
+            out3, app_s = host_s(lambda: graph_optimizer.run([path3, "-o", os.path.join(out_dir, "se3_opt.g2o"),
+                                                               "--device", "cuda"]))
+            say("backend", f"(e) graph_optimizer --device cuda on the SE3 file: {app_s:.2f} s, chi2 "
+                f"{out3['chi2_initial']:.4f} -> {out3['chi2_final']:.4f} ({out3['chi2_final'] / ctl3['chi2']:.6f}x "
+                "the control)")
+            check(out3["dim"] == 3 and out3["chi2_final"] < out3["chi2_initial"], "graph_optimizer on SE3 failed")
+    say("backend", f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -1031,6 +1284,7 @@ def run(out_dir):
     phase_manifold(ctx)
     phase_cloud_io(ctx, out_dir)
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
+    phase_backend(ctx, out_dir)  # 12
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

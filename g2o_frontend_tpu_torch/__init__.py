@@ -5,15 +5,19 @@ its counterpart in PyTorch, with the Pallas kernels replaced by kernels
 written by hand for NVIDIA Hopper (``csrc/``). It imports ``torch`` and
 never ``jax``, and nothing of the JAX package: the numpy-only modules it
 needs from there (``io/tum.py``, ``io/boss.py``, ``io/image_codec.py``,
-``graph/map_manager.py``, ``graph/pipeline.py``, ``ops/voronoi_graph.py``)
-are copied.
+``io/g2o.py``, ``io/sensors.py``, ``graph/map_manager.py``,
+``graph/pipeline.py``, ``ops/voronoi_graph.py``, ``solvers/control.py``,
+``native/fastg2o.cpp`` and the numpy part of ``slam/simulator.py``) are
+copied.
 
 Slice 1 is PWN dense RGB-D odometry; slice 2 is PWN SLAM with loop closing;
-the rest of PWN follows:
+the rest of PWN follows; slice 3 is the 2D pose-graph backend:
 
-utils     SE3 Lie maps, synthetic scenes, ATE, profiling.
+utils     SE2 and SE3 Lie maps, synthetic scenes, ATE, profiling.
 io        TUM sequences and trajectories; boss serialization and its image
-          codecs; map and pytree checkpoints.
+          codecs; map and pytree checkpoints; .g2o files; sensor
+          synchronization.
+native    The .g2o tokenizer (C++, built with g++ into ``_build/``).
 ops       sym6 algebra, integral images, closed-form eigh3x3, the fused
           aligner systems (one, and K candidates against one current
           cloud), the z-buffer linearizer and the gather probes: CUDA
@@ -23,13 +27,16 @@ pwn       Cloud, pinhole / multi / cylindrical projectors, depth->cloud
           converter, aligner (``align``, ``align_batch``), reference-format
           ``.conf`` pipelines, cloud merger, voxels, planes, depth
           calibration, ``.pwn`` cloud files.
-graph     Map manager, flat SE3 pose graph, map <-> solver reflector,
-          stream processors.
-solvers   PCG, block-tridiagonal cyclic reduction, SE3 LM optimizer.
+graph     Map manager, flat SE2 and SE3 pose graphs, map <-> solver
+          reflector, stream processors.
+solvers   PCG, block-tridiagonal cyclic reduction, SE2 and SE3 LM
+          optimizers, the dense and Schur-complement SE2 solvers, the
+          float64 host control.
 slam      Keyframe tracker, matcher, loop closer, map merger with cloud
-          fusion, manifold Voronoi extractor.
-apps      The ``pwn_odometry``, ``pwn_slam``, ``cloud_aligner`` and
-          ``profile_gather`` command lines.
+          fusion, manifold Voronoi extractor, world simulators.
+apps      The ``pwn_odometry``, ``pwn_slam``, ``cloud_aligner``,
+          ``profile_gather``, ``graph_optimizer``, ``boss_tools`` and
+          ``tracker_parity`` command lines.
 conf      A reference-format PWN SLAM pipeline for the bundled sequence.
 
 Float32 matrix products and convolutions must not drop to TF32: the 6x6

@@ -1,16 +1,17 @@
 """State carried between the JAX package and the port.
 
 The PWN path has no weights: its state is clouds, configs, poses, pose
-graphs, maps, merged models and plane sets. Clouds, `PoseGraph3D`s,
-`MergedModel`s and `PlaneSet`s cross as dicts of numpy arrays keyed by
-their field names (the two packages share names and layouts); configs
-cross as any object with the port config's fields, JAX's included, read by
-attribute so that JAX is never imported. A `MapManager` crosses through the
-checkpoint archive that both packages read and write
+graphs, maps, merged models and plane sets. Clouds, `PoseGraph2D`s,
+`PoseGraph3D`s, `MergedModel`s and `PlaneSet`s cross as dicts of numpy
+arrays keyed by their field names (the two packages share names and
+layouts); configs cross as any object with the port config's fields, JAX's
+included, read by attribute so that JAX is never imported. A `MapManager`
+crosses through the checkpoint archive that both packages read and write
 (`io.checkpoint.save_map` / `load_map`), any NamedTuple or dataclass of
 arrays through `io.checkpoint.save_pytree` / `load_pytree`, and a cloud the
 JAX package wrote as a reference `.pwn` file through
-`pwn.cloud_io.cloud_from_pwn` (the two packages' files are byte-equal).
+`pwn.cloud_io.cloud_from_pwn` (the two packages' files are byte-equal). A
+`G2OLog` crosses as itself: the port's `io/g2o.py` is a copy of JAX's.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .graph.store import PoseGraph3D
+from .graph.store import PoseGraph2D, PoseGraph3D
 from .pwn.aligner import AlignerConfig
 from .pwn.cloud import Cloud
 from .pwn.converter import ConverterConfig
@@ -61,21 +62,38 @@ def plane_set_from_numpy(arrays, device="cuda") -> PlaneSet:
     return PlaneSet(**_bool_or_f32(PlaneSet._fields, arrays, device, ("mask",)))
 
 
-def pose_graph3d_from_numpy(arrays, device="cuda") -> PoseGraph3D:
-    """{field: array} (e.g. a JAX PoseGraph3D's fields through numpy) ->
-    PoseGraph3D on `device`: masks bool, indices int64, the rest float32."""
+def _pose_graph_from_numpy(cls, arrays, device):
+    """Masks and `fixed` bool, edge indices int64, the rest float32."""
 
     def field(name):
         a = np.asarray(arrays[name])
-        dtype = bool if name.endswith("mask") or name == "fixed" else np.int64 if name == "pp_ij" else np.float32
+        dtype = bool if name.endswith("mask") or name == "fixed" else np.int64 if name.endswith("_ij") else np.float32
         return torch.as_tensor(np.array(a, dtype), device=device)
 
-    return PoseGraph3D(**{f.name: field(f.name) for f in dataclasses.fields(PoseGraph3D)})
+    return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
+
+
+def pose_graph3d_from_numpy(arrays, device="cuda") -> PoseGraph3D:
+    """{field: array} (e.g. a JAX PoseGraph3D's fields through numpy) ->
+    PoseGraph3D on `device`: masks bool, indices int64, the rest float32."""
+    return _pose_graph_from_numpy(PoseGraph3D, arrays, device)
 
 
 def pose_graph3d_to_numpy(g: PoseGraph3D) -> dict:
     """PoseGraph3D -> {field: numpy array} on the host."""
     return {f.name: getattr(g, f.name).detach().cpu().numpy() for f in dataclasses.fields(PoseGraph3D)}
+
+
+def pose_graph2d_from_numpy(arrays, device="cuda") -> PoseGraph2D:
+    """{field: array} (e.g. a JAX PoseGraph2D's fields through numpy, padded
+    or not) -> PoseGraph2D on `device`: masks and `fixed` bool, `pp_ij` and
+    `pl_ij` int64, the rest float32."""
+    return _pose_graph_from_numpy(PoseGraph2D, arrays, device)
+
+
+def pose_graph2d_to_numpy(g: PoseGraph2D) -> dict:
+    """PoseGraph2D -> {field: numpy array} on the host."""
+    return {f.name: getattr(g, f.name).detach().cpu().numpy() for f in dataclasses.fields(PoseGraph2D)}
 
 
 def config_from(obj):

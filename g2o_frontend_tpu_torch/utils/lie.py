@@ -1,7 +1,9 @@
-"""SE(3) Lie maps in PyTorch (counterpart of ``g2o_frontend_tpu/utils/lie.py``).
+"""SE(2) and SE(3) Lie maps in PyTorch (counterpart of
+``g2o_frontend_tpu/utils/lie.py``).
 
-The same two charts as the JAX reference:
+The same charts as the JAX reference:
 
+- the SE2 chart, 3-vector ``[x y theta]`` (``basemath/bm_se2.h``);
 - the reference's quaternion chart, 6-vector ``[tx ty tz qx qy qz]`` with
   ``qw = sqrt(1 - |q_xyz|^2)`` (``basemath/bm_se3.h:8-51``);
 - the canonical se(3) exp/log twist chart ``[v, w]``.
@@ -9,12 +11,67 @@ The same two charts as the JAX reference:
 Every function takes leading batch dimensions (``(..., 3)``, ``(..., 3, 3)``,
 ``(..., 4, 4)``) where the JAX version is written for one element and
 ``vmap``-ed. Nothing synchronises with the host, and nothing writes in
-place, so ``torch.func.jacfwd`` differentiates through the charts. The SE2
-part of the reference waits for a later slice.
+place, so ``torch.func.jacfwd`` differentiates through the charts.
 """
 from __future__ import annotations
 
 import torch
+
+
+# -- SE(2) ---------------------------------------------------------------------
+
+
+def wrap_angle(th):
+    """Wrap angle(s) to (-pi, pi]."""
+    return torch.atan2(torch.sin(th), torch.cos(th))
+
+
+def se2_v2t(v):
+    """(..., 3) [x, y, theta] -> (..., 3, 3) homogeneous transform."""
+    c, s = torch.cos(v[..., 2]), torch.sin(v[..., 2])
+    z, one = torch.zeros_like(c), torch.ones_like(c)
+    rows = [[c, -s, v[..., 0]], [s, c, v[..., 1]], [z, z, one]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def se2_t2v(T):
+    """(..., 3, 3) homogeneous transform -> (..., 3) [x, y, theta]."""
+    return torch.stack([T[..., 0, 2], T[..., 1, 2], torch.atan2(T[..., 1, 0], T[..., 0, 0])], -1)
+
+
+def se2_compose(a, b):
+    """a ⊕ b for chart vectors (..., 3): b applied in a's frame."""
+    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    return torch.stack(
+        [a[..., 0] + c * b[..., 0] - s * b[..., 1], a[..., 1] + s * b[..., 0] + c * b[..., 1],
+         wrap_angle(a[..., 2] + b[..., 2])],
+        -1,
+    )
+
+
+def se2_inverse(a):
+    """Inverse of chart vectors (..., 3)."""
+    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    return torch.stack([-(c * a[..., 0] + s * a[..., 1]), -(-s * a[..., 0] + c * a[..., 1]), -a[..., 2]], -1)
+
+
+def se2_relative(a, b):
+    """a^{-1} ∘ b as chart vectors (..., 3) (the SE2 edge prediction)."""
+    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    dx, dy = b[..., 0] - a[..., 0], b[..., 1] - a[..., 1]
+    return torch.stack([c * dx + s * dy, -s * dx + c * dy, wrap_angle(b[..., 2] - a[..., 2])], -1)
+
+
+def se2_apply(a, p):
+    """Chart vectors (..., 3) applied to points (..., 2); `a` broadcasts
+    against the points' leading dimensions."""
+    c, s = torch.cos(a[..., 2:3]), torch.sin(a[..., 2:3])
+    x = c * p[..., 0:1] - s * p[..., 1:2] + a[..., 0:1]
+    y = s * p[..., 0:1] + c * p[..., 1:2] + a[..., 1:2]
+    return torch.cat([x, y], -1)
+
+
+# -- SE(3) ---------------------------------------------------------------------
 
 
 def _eye(n, like):
