@@ -1027,8 +1027,8 @@ def profiled(fn):
     """(fn(), wall ms by CUDA events, device ms and device operations that
     torch.profiler's CUDA activity records) of one call. Only the CUDA
     activity is traced, so that host dispatch runs at its own speed.
-    Turning a trace into its events costs ~1 ms of host time for each
-    thousand, so phase 12 traces one LM iteration of a solve, not all."""
+    Turning a trace into its events costs ~0.25 ms of host time for each
+    one, so phase 12 traces one LM iteration of a solve, not all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
