@@ -1,5 +1,6 @@
-"""PyTorch port: the graph_optimizer command line against the JAX app, and
-`convert.pose_graph2d_from_numpy` / `pose_graph2d_to_numpy`.
+"""PyTorch port: the graph_optimizer command line against the JAX app,
+`convert.pose_graph2d_from_numpy` / `pose_graph2d_to_numpy`, and
+`graph3d_from_log` on a log with EDGE_SE3_PRIOR records.
 
 Inputs: a `write_g2o` file of the default `simulate()` world (200 poses, 80
 landmarks) and of the SE3 world of tests/test_torch_pose_graph.py (40
@@ -74,3 +75,29 @@ def test_pose_graph2d_crosses_through_numpy():
     back = convert.pose_graph2d_to_numpy(g)
     for name, a in arrays.items():
         np.testing.assert_array_equal(back[name], a, err_msg=name)
+
+
+def test_graph3d_from_log_with_prior_anchor_matches_jax(tmp_path):
+    """An SE3 log with EDGE_SE3_PRIOR records (`boss_tools add-imu
+    --synthesize`): the priors become edges from one fixed identity anchor
+    appended after the poses, in both packages; equal on JAX's unpadded
+    prefix, chi2 within rtol 1e-5."""
+    from g2o_frontend_tpu.graph.store import graph3d_from_log as jgraph3d_from_log
+    from g2o_frontend_tpu.solvers import pose_graph as jpg
+    from g2o_frontend_tpu_torch.apps import boss_tools
+    from g2o_frontend_tpu_torch.graph.store import graph3d_from_log
+    from g2o_frontend_tpu_torch.solvers import pose_graph as tpg
+
+    write_g2o(tmp_path / "se3.g2o", _se3_log())
+    with contextlib.redirect_stdout(io.StringIO()):
+        boss_tools.main(["add-imu", str(tmp_path / "se3.g2o"), "-o", str(tmp_path / "imu.g2o"), "--synthesize"])
+    log = read_g2o(tmp_path / "imu.g2o")
+    gt, maps = graph3d_from_log(log, device="cpu")
+    gj, _ = jgraph3d_from_log(log)
+    n, e = len(log.se3_ids) + 1, len(log.edge_se3_ij) + len(log.prior_se3_ids)
+    assert gt.poses.shape == (n, 7) and gt.pp_ij.shape == (e, 2) and len(maps["pose_id2idx"]) == n - 1
+    assert bool(gt.fixed[n - 1]) and (gt.pp_ij[len(log.edge_se3_ij):, 0] == n - 1).all()
+    for name, k in (("poses", n), ("pose_mask", n), ("fixed", n), ("pp_ij", e), ("pp_meas", e), ("pp_info", e),
+                    ("pp_mask", e)):
+        np.testing.assert_array_equal(getattr(gt, name).numpy(), np.asarray(getattr(gj, name))[:k], err_msg=name)
+    np.testing.assert_allclose(float(tpg.chi2_se3(gt)), float(jpg.chi2_se3(gj)), rtol=1e-5)
