@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1),
-PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN and
-the 2D pose-graph backend (slice 3).
+PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN,
+the 2D pose-graph backend (slice 3) and 2D SLAM with unknown data
+association (slice 4).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -75,7 +76,19 @@ Phases, one line each or more, any failure exits non-zero:
      world against the float64 control, and graph_optimizer on an SE3
      file. Each solve prints its wall ms by CUDA events, LM and CG
      iterations and LM iterations/s, and the device ms, device operations
-     and busy share of one LM iteration under torch.profiler.
+     and busy share of one LM iteration under torch.profiler;
+ 13. slice 4 (no kernel) at world-2000's counts, a simulated world of 2,001
+     poses and 70 landmarks written as a noassoc log: (a) `tracker2d
+     --device cuda` with the world2000 flags, then a `models.build(
+     "tracker2d", recipe="world2000")` tracker over the log (frames/s)
+     and EVAL.md section 2's closing schedule, gated on ATE < 0.7x the
+     odometry's and on the landmark count (0.6-1.8x those seen), with the
+     ATE against the known-association float64 optimum; (b) 300 frames on
+     the card and on the CPU in lockstep, the associations equal up to the
+     first window solve, then the card's device operations, host syncs
+     and busy share of a frame and of a window solve under
+     torch.profiler; (c) validated tracking, the constellation closure,
+     graph merge and every model family at test size.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -1085,6 +1098,32 @@ def logs_equal(a, b):
     return None
 
 
+def write_noassoc_g2o(path, world):
+    """A simulated world as a *noassoc* log (the reference's
+    ``world-2000-noassoc`` format): VERTEX_SE2 at the odometry-integrated
+    poses, each followed by its observations as DATA_FEATURE_POINTXY rows
+    without landmark ids, then the EDGE_SE2 odometry."""
+    import numpy as np
+
+    poses = world.noisy_init()
+    by_pose = {}
+    for (p, _l, z, w) in world.observations:
+        by_pose.setdefault(p, []).append((z, w))
+    lines = []
+    for i, pose in enumerate(poses):
+        x, y, th = (float(v) for v in pose)
+        lines.append(f"VERTEX_SE2 {i} {x!r} {y!r} {th!r}")
+        for z, w in by_pose.get(i, ()):
+            lines.append(f"DATA_FEATURE_POINTXY 0 2 {float(z[0])!r} {float(z[1])!r} {float(w[0, 0])!r} "
+                         f"{float(w[0, 1])!r} {float(w[1, 1])!r}")
+    for (i, j, z, w) in world.odom_edges:
+        info = " ".join(repr(float(w[a, b])) for a in range(3) for b in range(a, 3))
+        lines.append(f"EDGE_SE2 {i} {j} {float(z[0])!r} {float(z[1])!r} {float(z[2])!r} {info}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return np.asarray(poses)
+
+
 def phase_backend(ctx, out_dir):
     """Phase 12: slice 3, the 2D pose-graph backend at victoriaPark's size
     (7,120 poses, 151 landmarks, 21,662 DOF) on a simulated world. (a) The
@@ -1241,6 +1280,252 @@ def phase_backend(ctx, out_dir):
     say("backend", f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 
+# Phase 13: slice 4 at world-2000's counts (EVAL.md section 2: 2,001 poses,
+# 70 landmarks); the world is the port's simulator with the rest at its
+# defaults, its landmark ids stripped. The lockstep run holds the card to
+# the CPU over the first 300 frames.
+WORLD2000 = dict(n_poses=2001, n_landmarks=70, seed=0)
+LOCKSTEP_FRAMES = 300
+PROFILED_FRAMES = range(300, 319)  # after the lockstep run; frame 319 ends with a window solve (optimizeEachN 20)
+TRACKER2D_FLAGS = ["-minLandmarkCreationFrames", "1", "-incrementalRansacInlierThreshold", "0.5",
+                   "-loopRansacInlierThreshold", "0.2", "-loopLandmarkMergeDistance", "0.5", "-localMapSize", "10",
+                   "-optimizeEachN", "20"]  # the world2000 recipe as the app's flags
+
+
+def eval_schedule(tr):
+    """EVAL section 2's closing schedule (scripts/evaluate.py:207-229) after
+    the tracking loop: the 0.5/1.0/1.5 m merges, each with a global solve;
+    three whole-trajectory sweeps with re-association; two Mahalanobis
+    merge rounds. Returns the last chi2."""
+    for d in (0.5, 1.0, 1.5):
+        tr.merge_nearby_landmarks(d)
+        tr.optimize(local=False)
+    for _ in range(3):
+        tr.close_loops_global(segment=200, gate=4.0)
+        tr.merge_nearby_landmarks(0.75)
+        tr.reassociate(gate=1.0)
+        chi2 = tr.optimize(local=False)
+    for gate in (9.21, 16.0):
+        tr.merge_landmarks_mahalanobis(chi2_gate=gate, prefilter_distance=6.0)
+        tr.reassociate(gate=1.0)
+        chi2 = tr.optimize(local=False)
+    return chi2
+
+
+def profile_frames(fn):
+    """(fn(), wall ms, device ms, device operations, host syncs) of one call
+    under torch.profiler (CPU and CUDA activity): the syncs are the CUDA
+    runtime's synchronize calls, one in each read of a device value."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1000.0 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device = sum(e.device_time_total for e in kernels) / 1000.0
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    check(device > 0, "torch.profiler recorded no device time")
+    return out, wall, device, sum(e.count for e in kernels), syncs
+
+
+def figure_world(seed, n_lms=14):
+    """tests/test_validated_slam.py's sparse world and 40-pose circle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lms = rng.uniform(-9, 9, (n_lms, 2))
+    path = [np.array([np.cos(t) * 5, np.sin(t) * 5, t + np.pi / 2]) for t in np.linspace(0, 2 * np.pi, 40,
+                                                                                             endpoint=False)]
+    return lms, path
+
+
+def drifted_frames(lms, path, loops=2, drift=(8.0, 5.0, 0.0), drift_from=40, ramp=25, blind_ramp=True,
+                   sense=6.0):
+    """(odometry delta, observations) along `path` with a drift that ramps in
+    over `ramp` frames from `drift_from` (tests/test_validated_slam.py's
+    `_frames`; with `ramp` 0 it jumps, as tests/test_constellation.py:100),
+    no observations while it ramps when `blind_ramp`."""
+    import numpy as np
+
+    prev = None
+    for k, p in enumerate(path * loops):
+        scale = np.clip((k - drift_from) / ramp, 0.0, 1.0) if ramp else float(k >= drift_from)
+        est = p + np.asarray(drift) * scale
+        rel = lms - p[:2]
+        c, s = np.cos(p[2]), np.sin(p[2])
+        local = rel @ np.array([[c, s], [-s, c]]).T
+        vis = np.linalg.norm(rel, axis=1) < sense
+        if blind_ramp and 0.0 < scale < 1.0:
+            vis[:] = False
+        if prev is None:
+            delta = np.zeros(3)
+        else:
+            c2, s2 = np.cos(prev[2]), np.sin(prev[2])
+            dd = est[:2] - prev[:2]
+            delta = np.array([c2 * dd[0] + s2 * dd[1], -s2 * dd[0] + c2 * dd[1], est[2] - prev[2]])
+        prev = est
+        yield delta, local[vis]
+
+
+def phase_slam2d(ctx, out_dir):
+    """Phase 13: slice 4, 2D SLAM with unknown data association. (a) A world
+    at world-2000's counts as a noassoc log through `tracker2d --device
+    cuda` (the world2000 recipe's flags), then the same log through a
+    `models.build("tracker2d", recipe="world2000")` tracker and EVAL
+    section 2's schedule, ATE against the ground truth, the odometry and
+    the float64 optimum of the known-association graph; (b) its first 300
+    frames on the card and on the CPU in lockstep, the same draws; (c) the
+    validated tracking loop, the constellation closure, graph merge and the model
+    families at test size."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch import models
+    from g2o_frontend_tpu_torch.apps import tracker2d
+    from g2o_frontend_tpu_torch.graph.store import graph2d_from_log
+    from g2o_frontend_tpu_torch.io.g2o import G2OLog, read_g2o
+    from g2o_frontend_tpu_torch.slam import graph_merge
+    from g2o_frontend_tpu_torch.slam.feature_tracker import FeatureTracker2D, Tracker2DConfig, _se2_rel_np
+    from g2o_frontend_tpu_torch.slam.simulator import SimulatorConfig, simulate
+    from g2o_frontend_tpu_torch.slam.validated_slam import (ValidatedSlamConfig, finish_window_closures,
+                                                            run_validated_tracking)
+    from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+    from g2o_frontend_tpu_torch.solvers.control import control_optimize_se2
+    from g2o_frontend_tpu_torch.utils.evaluation import ate_xy
+
+    device, t13 = ctx["device"], time.perf_counter()
+
+    # (a) the world-2000-size run
+    world = simulate(SimulatorConfig(**WORLD2000))
+    path = os.path.join(out_dir, "world2000_noassoc.g2o")
+    odo = write_noassoc_g2o(path, world)
+    log = read_g2o(path)
+    frames = list(tracker2d.frames_of(log))
+    seen = len({l for (_, l, _, _) in world.observations})
+    say("slam2d", f"(a) world: {len(frames)} poses, {len(log.features)} observations without ids of {seen} landmarks "
+        f"seen (of {len(world.landmarks)}), file {os.path.getsize(path)} B")
+    out, app_s = host_s(lambda: tracker2d.run([path, "-o", os.path.join(out_dir, "world2000_opt.g2o"),
+                                               *TRACKER2D_FLAGS, "--device", "cuda"]))
+    say("slam2d", f"(a) tracker2d --device cuda, world2000 flags: {app_s:.2f} s, {len(frames) / app_s:.2f} frames/s "
+        f"with the app's closing and final solve; {json.dumps(out)}")
+    check(np.isfinite(out["chi2"]) and out["n_poses"] == len(frames), "tracker2d failed")
+
+    tr = models.build("tracker2d", recipe="world2000", device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, (delta, obs, info) in enumerate(frames):
+        tr.process_frame(delta, obs, info)
+        if (k + 1) % 100 == 0:
+            tr.close_loops()
+    track_s = time.perf_counter() - t0
+    n_tracked = int(tr.lm_alive.sum())
+    chi2, sched_s = host_s(lambda: eval_schedule(tr))
+    est = tr.trajectory()
+    gt = world.gt_poses
+    g_known, _ = graph2d_from_log(world.to_g2o_log(), device="cpu")
+    ctl, ctl_s = host_s(lambda: control_optimize_se2(g_known, max_iters=40))
+    ref = np.asarray(ctl["poses"])[: len(gt)]
+    ate_gt, ate_odo = ate_xy(est[:, :2], gt[:, :2]), ate_xy(odo[:, :2], gt[:, :2])
+    ate_ref, odo_ref = ate_xy(est[:, :2], ref[:, :2]), ate_xy(odo[:, :2], ref[:, :2])
+    n_lm = int(tr.lm_alive.sum())
+    say("slam2d", f"(a) tracking loop ({len(frames)} frames, close_loops every 100): {track_s:.2f} s, "
+        f"{len(frames) / track_s:.2f} frames/s, {n_tracked} landmarks; EVAL section 2 schedule {sched_s:.2f} s; "
+        f"chi2 {chi2:.4f}; {n_lm} landmarks against {seen} seen ({n_lm / seen:.3f}x); ATE rmse against the "
+        f"ground truth {ate_gt['rmse']:.4f} m (odometry {ate_odo['rmse']:.4f} m, {ate_gt['rmse'] / ate_odo['rmse']:.3f}x), "
+        f"against the known-association float64 optimum {ate_ref['rmse']:.4f} m (odometry {odo_ref['rmse']:.4f} m; "
+        f"control chi2 {ctl['chi2']:.4f} in {ctl['iters']} LM iterations, {ctl_s:.2f} s on the host)")
+    check(ate_gt["rmse"] < 0.7 * ate_odo["rmse"], f"ATE {ate_gt['rmse']:.4f} m is not below 0.7x the odometry's "
+          f"{ate_odo['rmse']:.4f} m")
+    check(0.6 * seen <= n_lm <= 1.8 * seen, f"{n_lm} landmarks against {seen} seen")
+
+    # (b) the card against the CPU over the first frames, the same draws;
+    # then the card's next frames under torch.profiler
+    cfg = Tracker2DConfig(**models.TRACKER2D_RECIPES["world2000"])
+    card, cpu = FeatureTracker2D(cfg, device=device), FeatureTracker2D(cfg, device="cpu")
+    first_diff, pose_diffs = None, {}
+    for k, (delta, obs, info) in enumerate(frames[:LOCKSTEP_FRAMES]):
+        if not np.array_equal(card.process_frame(delta, obs, info), cpu.process_frame(delta, obs, info)):
+            first_diff = k if first_diff is None else first_diff
+        if (k + 1) % 100 == 0:
+            pose_diffs[k + 1] = float(np.abs(card.trajectory() - cpu.trajectory())[:, :2].max())
+    say("slam2d", f"(b) lockstep, {LOCKSTEP_FRAMES} frames on the card and the CPU: associations first differ at "
+        f"frame {first_diff} (the first window solve ends frame {cfg.optimize_each_n - 1}); largest position "
+        "difference " + ", ".join(f"{d:.3e} m after {f} frames" for f, d in pose_diffs.items()))
+    check(first_diff is None or first_diff >= cfg.optimize_each_n, f"the card's associations part from the CPU's "
+          f"at frame {first_diff}, before the first window solve")
+    n = len(PROFILED_FRAMES)
+    _, wall, dev, ops, syncs = profile_frames(lambda: [card.process_frame(*frames[j]) for j in PROFILED_FRAMES])
+    say("slam2d", f"(b) the card's frames {PROFILED_FRAMES.start}-{PROFILED_FRAMES.stop - 1} under torch.profiler: "
+        f"per frame wall {wall / n:.3f} ms, device {dev / n:.4f} ms ({100.0 * dev / wall:.1f}% busy), "
+        f"{ops / n:.1f} device operations, {syncs / n:.2f} host syncs")
+    _, wall, dev, ops, syncs = profile_frames(lambda: card.process_frame(*frames[PROFILED_FRAMES.stop]))
+    say("slam2d", f"(b) frame {PROFILED_FRAMES.stop} with its window solve under torch.profiler: wall {wall:.3f} ms, "
+        f"device {dev:.4f} ms ({100.0 * dev / wall:.1f}% busy), {ops} device operations, {syncs} host syncs")
+
+    # (c) the other paths at test size
+    for seed in (1, 2, 7):  # tests/test_validated_slam.py:69
+        lms, circle = figure_world(seed)
+        vt = FeatureTracker2D(Tracker2DConfig(odometry_is_good=True, optimize_each_n=0,
+                                              incremental_guess_max_feature_distance=1.0,
+                                              odom_info=(10.0, 10.0, 100.0)), device=device)
+        st, v_s = host_s(lambda: run_validated_tracking(vt, drifted_frames(lms, circle), ValidatedSlamConfig(
+            solve_every=20, propose_every=10, window=30, old_age=25, drift_base=15.0, min_inliers=4)))
+        finish_window_closures(vt, window=30, step=15, old_age=25, radius=30.0, min_inliers=4)
+        n, med = int(vt.lm_alive.sum()), float(np.median(vt.obs_edge_chi2()))
+        say("slam2d", f"(c) validated tracking, figure world seed {seed}: {v_s:.2f} s, {st['closures']} closures, "
+            f"{st['rollbacks']} rollbacks, {n} landmarks (true {len(lms)}), median observation chi2 {med:.4f}")
+        check(n <= len(lms) + 1 and st["closures"] >= 1 and med < 1.0, f"validated tracking failed on seed {seed}")
+    lms, circle = np.random.default_rng(3).uniform(-8, 8, (25, 2)), figure_world(0)[1]
+    ct = FeatureTracker2D(Tracker2DConfig(odometry_is_good=True, optimize_each_n=0,
+                                          incremental_guess_max_feature_distance=1.0), device=device)
+    for delta, obs in drifted_frames(lms, circle, drift=(15.0, 9.0, 0.0), ramp=0, blind_ramp=False):
+        ct.process_frame(delta, obs)
+    before = int(ct.lm_alive.sum())
+    merged = ct.close_loops_constellation(segment=40, dist_tol=0.3, inlier_threshold=0.8, min_inliers=6)
+    say("slam2d", f"(c) close_loops_constellation, 15 m drift jump: {before} -> {int(ct.lm_alive.sum())} landmarks, "
+        f"{merged} merged")
+    check(before > 30 and merged >= 5, "the constellation closure merged too few")
+    sim = simulate(SimulatorConfig(n_poses=160, n_landmarks=0, seed=11))
+    a_idx, b_idx = np.arange(0, 100), np.arange(60, 160)
+    Tb0 = sim.gt_poses[60]
+    poses_b = np.stack([_se2_rel_np(Tb0, p) for p in sim.gt_poses[b_idx]])
+
+    def sub_log(idx, poses):
+        pos = {v: k for k, v in enumerate(idx)}
+        es = [(pos[i], pos[j], z, w) for (i, j, z, w) in sim.odom_edges if i in pos and j in pos]
+        return G2OLog(se2_ids=np.arange(len(idx)), se2_poses=np.asarray(poses, float),
+                      edge_se2_ij=np.asarray([e[:2] for e in es]), edge_se2_meas=np.asarray([e[2] for e in es]),
+                      edge_se2_info=np.asarray([e[3] for e in es]), fixed_ids=np.array([0]))
+
+    res = graph_merge.match_graphs(sim.gt_poses[a_idx], poses_b, initial_guess=Tb0, gate=1.5, device=device)
+    score = graph_merge.overlap_score(sim.gt_poses[a_idx], poses_b, res.transform, radius=0.8, device=device)
+    merged_log = graph_merge.merge_graphs(sub_log(a_idx, sim.gt_poses[a_idx]), sub_log(b_idx, poses_b), res,
+                                          device=device)
+    g, _ = graph2d_from_log(merged_log, device=device)
+    chi2m = pg.optimize_se2(g, iters=8, cg_iters=80)[1].chi2.cpu().numpy()
+    say("slam2d", f"(c) match_graphs / merge_graphs, two halves of a 160-pose world: ok {res.ok}, {len(res.pairs)} "
+        f"pairs, transform {np.round(res.transform, 4).tolist()} (truth {np.round(Tb0, 4).tolist()}), overlap "
+        f"{score:.3f}; merged graph chi2 {chi2m[0]:.4f} -> {chi2m[-1]:.4f}")
+    check(res.ok and len(res.pairs) >= 20 and score > 0.35 and chi2m[-1] <= chi2m[0] + 1e-3, "graph merge failed")
+    for recipe in models.TRACKER2D_RECIPES:
+        rt = models.build("tracker2d", recipe=recipe, device=device)
+        for delta, obs, info in frames[:30]:
+            rt.process_frame(delta, obs, info)
+        say("slam2d", f"(c) models.build('tracker2d', recipe={recipe!r}): 30 frames, {rt.stats()}")
+        check(rt.stats()["n_landmarks"] > 0, f"recipe {recipe} made no landmark")
+    od = models.build("pwn_rgbd_odometry", rows=480, cols=640, device=device)
+    m0, m1 = od.process_frame(ctx["d_ref"]), od.process_frame(ctx["d_cur"])
+    say("slam2d", f"(c) models.build('pwn_rgbd_odometry', rows=480, cols=640) on the bench pair: keyframe "
+        f"{m0['keyframe']}, then {m1['inliers']} inliers")
+    check(m0["keyframe"] and m1["inliers"] > 0, "the pwn_rgbd_odometry family did not align the bench pair")
+    say("slam2d", f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -1264,7 +1549,7 @@ def run(out_dir):
     d_ref, d_cur, proj, T_gt = bench_pair(device)
     ccfg, acfg = ConverterConfig(), AlignerConfig()
     ref, cur = depth_to_cloud(d_ref, proj, ccfg), depth_to_cloud(d_cur, proj, ccfg)
-    ctx = dict(device=device, proj=proj, ccfg=ccfg, acfg=acfg, ref=ref, cur=cur, d_cur=d_cur, T_gt=T_gt,
+    ctx = dict(device=device, proj=proj, ccfg=ccfg, acfg=acfg, ref=ref, cur=cur, d_ref=d_ref, d_cur=d_cur, T_gt=T_gt,
                inv_gt=np.linalg.inv(T_gt), cur_packed=fa.pack_cur(cur), ref_table=fa.pack_ref(ref),
                per_align=acfg.outer_iterations * acfg.inner_iterations + 1)
 
@@ -1285,6 +1570,7 @@ def run(out_dir):
     phase_cloud_io(ctx, out_dir)
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
     phase_backend(ctx, out_dir)  # 12
+    phase_slam2d(ctx, out_dir)  # 13
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

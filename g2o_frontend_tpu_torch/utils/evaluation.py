@@ -4,11 +4,14 @@ in ``g2o_frontend_tpu/utils/evaluation.py``).
 Stamps are associated as in the TUM benchmark; the estimate is aligned to
 the ground truth by the closed-form Horn/Umeyama rigid fit in float64 (the
 JAX package takes a float32 power-iteration Horn fit from its RANSAC
-solvers), then the position RMSE is reported.
+solvers), then the position RMSE is reported. `ate_xy`, the planar ATE of
+the 2D SLAM configurations, aligns by the RANSAC solvers' float32 Horn2D
+fit, as the JAX package's does.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..io.tum import associate
 
@@ -51,4 +54,26 @@ def ate(ts_est, poses_est7, ts_gt, poses_gt7, max_difference=0.02, align=True):
         "std": float(err.std()),
         "max": float(err.max()),
         "pairs": len(pairs),
+    }
+
+
+def ate_xy(est_xy, gt_xy, align=True):
+    """2D ATE for the planar SLAM configs (datasets/2D evaluation): the
+    estimate aligned to the ground truth by `fit_se2_points` in float32."""
+    from ..ransac.solvers import fit_se2_points
+
+    est = np.asarray(est_xy, np.float32)
+    gt = np.asarray(gt_xy, np.float32)
+    n = min(len(est), len(gt))
+    est, gt = est[:n], gt[:n]
+    if align and n >= 2:
+        x = fit_se2_points(torch.as_tensor(gt), torch.as_tensor(est), torch.ones(n)).numpy()
+        c, s = np.cos(x[2]), np.sin(x[2])
+        est = est @ np.array([[c, -s], [s, c]]).T + x[:2]
+    err = np.linalg.norm(est - gt, axis=1)
+    return {
+        "rmse": float(np.sqrt(np.mean(err**2))),
+        "mean": float(err.mean()),
+        "max": float(err.max()),
+        "pairs": n,
     }

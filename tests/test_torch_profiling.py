@@ -89,5 +89,9 @@ def test_entry_points_default_to_cuda():
     assert {k: v for k, v in found.items() if v != "cuda"} == {}
     for name in ("convert.cloud_from_numpy", "convert.pose_graph3d_from_numpy", "utils.synth.render_planes_depth",
                  "slam.pwn_tracker.PwnTracker", "slam.pwn_tracker.odometry_scan", "graph.reflector.MapReflector",
-                 "apps.pwn_odometry --device", "apps.pwn_slam --device", "apps.profile_gather --device"):
+                 "apps.pwn_odometry --device", "apps.pwn_slam --device", "apps.profile_gather --device",
+                 "slam.feature_tracker.FeatureTracker2D", "slam.constellation.match_constellations",
+                 "slam.graph_merge.match_graphs", "slam.graph_merge.merge_graphs", "slam.graph_merge.overlap_score",
+                 "slam.graph_merge.map_entropy", "models.pwn_rgbd_odometry", "models.tracker2d",
+                 "apps.tracker2d --device"):
         assert f"g2o_frontend_tpu_torch.{name}" in found, name
