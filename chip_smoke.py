@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1),
 PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN,
-the 2D pose-graph backend (slice 3) and 2D SLAM with unknown data
-association (slice 4).
+the 2D pose-graph backend (slice 3), 2D SLAM with unknown data
+association (slice 4) and laser grid SLAM, line SLAM, the plane graph and
+BA (slice 5).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -88,7 +89,19 @@ Phases, one line each or more, any failure exits non-zero:
      first window solve, then the card's device operations, host syncs
      and busy share of a frame and of a window solve under
      torch.profiler; (c) validated tracking, the constellation closure,
-     graph merge and every model family at test size.
+     graph merge and every model family at test size;
+ 14. slice 5 (no kernel) at full size: (a) `models.build("grid_slam")` over
+     a simulated laser world at graphSE2.g2o's 452 scans (800x800 grids at
+     0.05 m) and its pose-graph solve, its ATE against the odometry's;
+     every correlative match of the card rerun on the CPU (>= 99% the
+     CPU's pose, the rest ties); the same scans through the port on the
+     CPU (the same submap count); the JAX package's 120-scan ground-truth
+     fixture, gated on ATE < 0.75x the odometry's and < 0.35 m; 20 scans
+     under torch.profiler; (b) `models.build("line_slam")` over the same scans on
+     the card and on the CPU; (c) the plane graph at 1,000 poses and 60
+     planes and (d) BA at 200 poses and 20,000 points, each trace's first
+     LM iterations within rtol 1e-3 of the CPU's, and a 30-pose BA within
+     1.01x the float64 control.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -1526,6 +1539,360 @@ def phase_slam2d(ctx, out_dir):
     say("slam2d", f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
 
+# phase 14: slice 5 at full size
+GRID_WORLD = dict(n_poses=452, n_beams=360, room=12.0, max_range=16.0, odom_noise=(0.08, 0.05, 0.02),
+                  seed=0)  # graphSE2.g2o's 452 scans (EVAL.md section 3), simulated
+GRID_SLAM = dict(map_half_size=20.0, scans_per_submap=15, min_match_score=30.0)  # an 800x800 grid at 0.05 m
+GRID_FIXTURE = dict(n_poses=120, n_beams=360, room=6.0, max_range=16.0, odom_noise=(0.08, 0.05, 0.02))
+GRID_FIXTURE_SLAM = dict(map_half_size=8.4, scans_per_submap=12, min_match_score=30.0)  # tests/test_grid_slam.py:89
+PLANE_BIG = dict(n_poses=1000, n_planes=60, per_pose=8, step=0.05, seed=9)  # 8,000 plane edges
+BA_BIG = dict(n_poses=200, n_points=20000, per_point=8, seed=13)  # 160,000 observations (BAL Dubrovnik-88's order)
+BA_CONTROL = dict(n_poses=30, n_points=1000, per_point=8, seed=21)  # against the dense float64 control
+
+
+def plane_world(n_poses=5, planes=None, per_pose=None, noise=0.01, step=None, seed=9):
+    """A plane-SLAM problem as tests/test_planes.py:77-127 builds one: world
+    planes (canonical d >= 0; `planes` (L, 4), else the synthetic room's
+    six), poses uniform in a box (or, with `step`, a random walk of twists
+    of that scale), each pose observing `per_pose` random planes (all by
+    default) with noise, an odometry chain from the truth, and noisy
+    initial poses (pose 0 exact) and plane offsets. Returns (poses_gt (N,
+    4, 4), planes_gt, poses7_init, planes_init, pp_edges, pl_edges) with
+    edges (i, j, z, info)."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.slam.simulator import _exp_se3
+    from g2o_frontend_tpu_torch.slam.simulator import _T_to_pose7 as _pose7
+    from g2o_frontend_tpu_torch.utils.synth import ROOM_PLANES
+
+    rng = np.random.default_rng(seed)
+    if planes is None:
+        planes = [np.concatenate([-np.asarray(n), [-d]]) if d < 0 else np.concatenate([n, [d]])
+                  for n, d in ROOM_PLANES]
+    planes_gt = np.asarray(planes, np.float64)
+    poses_gt = [np.eye(4)] if step else []
+    while len(poses_gt) < n_poses:
+        if step:
+            poses_gt.append(poses_gt[-1] @ _exp_se3(rng.normal(0, step, 6)))
+        else:
+            poses_gt.append(_exp_se3(np.concatenate([rng.uniform(-0.4, 0.4, 3), rng.uniform(-0.2, 0.2, 3)])))
+    pl_edges, info4 = [], np.eye(4) * 100
+    for i, T in enumerate(poses_gt):
+        seen = range(len(planes_gt)) if per_pose is None else np.sort(rng.choice(len(planes_gt), per_pose, False))
+        for l in seen:
+            n, d = planes_gt[l, :3], planes_gt[l, 3]
+            z = np.concatenate([T[:3, :3].T @ n, [d - n @ T[:3, 3]]])
+            z[:3] += rng.normal(0, noise, 3)
+            z[:3] /= np.linalg.norm(z[:3])
+            z[3] += rng.normal(0, noise)
+            pl_edges.append((i, int(l), z, info4))
+    info6 = np.eye(6) * 100
+    pp_edges = [(i, i + 1, _pose7(np.linalg.inv(poses_gt[i]) @ poses_gt[i + 1]), info6) for i in range(n_poses - 1)]
+    poses7 = [_pose7(T if i == 0 else T @ _exp_se3(rng.normal(0, 0.05, 6))) for i, T in enumerate(poses_gt)]
+    planes_init = planes_gt.copy()
+    planes_init[:, 3] += rng.normal(0, 0.1, len(planes_gt))
+    return np.asarray(poses_gt), planes_gt, np.asarray(poses7), planes_init, pp_edges, pl_edges
+
+
+def random_planes(n, seed):
+    """(n, 4) planes with unit normals uniform on the sphere and offsets in
+    [1, 6) m."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(n, 3))
+    return np.concatenate([nrm / np.linalg.norm(nrm, axis=1, keepdims=True), rng.uniform(1, 6, (n, 1))], 1)
+
+
+def ba_world(n_poses=8, n_points=60, per_point=None, noise=0.01, init_noise=0.08, seed=13):
+    """A BA problem as tests/test_ba.py:15-41 builds one: points uniform in
+    a 6 m cube, poses with translations in [-1, 1] and rotations in [-0.3,
+    0.3], each point observed from `per_point` random poses (all by default)
+    as a local 3D point with noise and information 100 I, and noisy initial
+    poses (pose 0 exact) and points. Returns (poses_gt (N, 4, 4), points_gt,
+    poses7_init, points_init, (ij (M, 2), z (M, 3), info (M, 3, 3)))."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.slam.simulator import _exp_se3
+    from g2o_frontend_tpu_torch.slam.simulator import _T_to_pose7 as _pose7
+
+    rng = np.random.default_rng(seed)
+    points_gt = rng.uniform(-3, 3, (n_points, 3))
+    poses_gt = np.asarray([_exp_se3(np.concatenate([rng.uniform(-1, 1, 3), rng.uniform(-0.3, 0.3, 3)]))
+                           for _ in range(n_poses)])
+    if per_point is None:
+        ij = np.stack(np.meshgrid(np.arange(n_poses), np.arange(n_points), indexing="ij"), -1).reshape(-1, 2)
+    else:
+        who = np.argsort(rng.random((n_points, n_poses)), 1)[:, :per_point]
+        ij = np.stack([who.reshape(-1), np.repeat(np.arange(n_points), per_point)], 1)
+    R, t = poses_gt[ij[:, 0], :3, :3], poses_gt[ij[:, 0], :3, 3]
+    z = np.einsum("kji,kj->ki", R, points_gt[ij[:, 1]] - t) + rng.normal(0, noise, (len(ij), 3))
+    info = np.broadcast_to(np.eye(3) * 100, (len(ij), 3, 3)).copy()
+    poses7 = np.asarray([_pose7(T if i == 0 else T @ _exp_se3(rng.normal(0, init_noise, 6)))
+                         for i, T in enumerate(poses_gt)])
+    points_init = points_gt + rng.normal(0, init_noise, points_gt.shape)
+    return poses_gt, points_gt, poses7, points_init, (ij, z, info)
+
+
+class Recorder:
+    """Wraps `module.name` while in a `with` block: each call's arguments
+    are kept (with `keep`) and the call is timed by a pair of CUDA events,
+    read once the block has ended (`ms`)."""
+
+    def __init__(self, module, name, keep=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls, self.events = [], []
+
+    def __enter__(self):
+        import torch
+
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*args, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            if self.keep:
+                self.calls.append((args, kw, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self):
+        import numpy as np
+        import torch
+
+        torch.cuda.synchronize()
+        return np.asarray([e0.elapsed_time(e1) for e0, e1 in self.events])
+
+
+def odometry_path(gt0, deltas):
+    """The poses that integrate `deltas` from `gt0` (SE2, numpy)."""
+    import numpy as np
+
+    odo = [np.asarray(gt0, np.float64)]
+    for d in deltas:
+        a = odo[-1]
+        c, s = np.cos(a[2]), np.sin(a[2])
+        odo.append(np.array([a[0] + c * d[0] - s * d[1], a[1] + s * d[0] + c * d[1], a[2] + d[2]]))
+    return np.asarray(odo)
+
+
+def drive_scans(drv, world, scans=None):
+    """Feed a laser world's scans (all, or the range `scans`) to a grid or
+    line SLAM driver with the odometry deltas; returns the host seconds,
+    the device synchronised at both ends."""
+    import numpy as np
+    import torch
+
+    ks = range(len(world["scans"])) if scans is None else scans
+    if drv.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in ks:
+        drv.process_scan(*world["scans"][k], world["odom_deltas"][k - 1] if k else np.zeros(3, np.float32))
+    if drv.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def edge_errors(slam, gt):
+    """A grid-SLAM driver's scan-to-submap and loop-closure edges held
+    against the ground-truth relative poses: the matches' median
+    translation error and its median component along the true motion, and
+    the loop closures off by more than 0.3 m."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.slam.simulator import _rel
+
+    out = {}
+    for kind, info in (("match", slam.cfg.match_info), ("loop", slam.cfg.loop_info)):
+        errs = np.asarray([(z - _rel(gt[i], gt[j]))[:2].tolist() + _rel(gt[i], gt[j])[:2].tolist()
+                           for i, j, z, w in slam.edges if np.allclose(np.diag(w), info)]).reshape(-1, 4)
+        along = np.sum(errs[:, :2] * errs[:, 2:], 1) / np.maximum(np.linalg.norm(errs[:, 2:], axis=1), 1e-9)
+        out[kind] = (len(errs), np.linalg.norm(errs[:, :2], axis=1), along)
+    (nm, em, am), (nl, el, _) = out["match"], out["loop"]
+    return (f"{nm} scan-to-submap matches, translation error median {np.median(em):.4f} m, along the true motion "
+            f"median {np.median(am):+.4f} m; {nl} loop closures, {int((el > 0.3).sum())} off by more than 0.3 m "
+            f"(median {np.median(el) if nl else 0.0:.4f} m)")
+
+
+def recheck_matches(calls, resolution, theta_step):
+    """Every recorded `correlative_match_multires` call of the card rerun on
+    CPU copies of its inputs: (equal poses, ties within one cell and one
+    theta step, ties farther apart, the largest score difference relative
+    to the CPU's). A tie is a pose other than the CPU's whose score equals
+    the CPU's within rtol 1e-4; a pose with another score fails the phase."""
+    from g2o_frontend_tpu_torch.laser import scan_matcher as sm
+
+    equal, near, far, worst = 0, 0, [], 0.0
+    for args, kw, res in calls:
+        cpu = sm.correlative_match_multires(*(a.cpu() if hasattr(a, "cpu") else a for a in args),
+                                            **{k: v.cpu() if hasattr(v, "cpu") else v for k, v in kw.items()})
+        pc, pg = cpu.pose.double(), res.pose.cpu().double()
+        sc, sg = float(cpu.score), float(res.score)
+        worst = max(worst, abs(sg - sc) / max(abs(sc), 1e-30))
+        if float((pc - pg).abs().max()) <= 1e-6:
+            equal += 1
+            continue
+        check(abs(sg - sc) <= 1e-4 * abs(sc), f"a match of the card {pg.tolist()} (score {sg}) differs from the "
+              f"CPU's {pc.tolist()} (score {sc})")
+        if float((pc[:2] - pg[:2]).abs().max()) <= 1.01 * resolution and abs(float(pc[2] - pg[2])) <= 1.01 * theta_step:
+            near += 1
+        else:
+            far.append((pg.tolist(), pc.tolist(), sc))
+    return equal, near, far, worst
+
+
+def phase_slice5(ctx, out_dir):
+    """Phase 14: slice 5 (no kernel) at full size. (a) Grid SLAM over a
+    simulated laser world at graphSE2.g2o's 452 scans (800x800 grids at
+    0.05 m), every correlative match of the card recorded and rerun on the
+    CPU, the same scans through the port on the CPU, the JAX package's
+    ground-truth fixture (its ATE gate), 20 scans under torch.profiler; (b) line SLAM over the same scans, and on the CPU; (c)
+    the plane graph, 1,000 poses and 60 planes (8,000 plane edges), its
+    first LM iterations on the CPU; (d) BA, 200 poses and 20,000 points
+    (160,000 observations), its first LM iterations on the CPU, and a
+    30-pose problem against the float64 control."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch import models
+    from g2o_frontend_tpu_torch.slam import grid_slam as gs
+    from g2o_frontend_tpu_torch.slam import line_slam as ls
+    from g2o_frontend_tpu_torch.slam.simulator import LaserWorldConfig, simulate_laser_world
+    from g2o_frontend_tpu_torch.solvers import ba as tba
+    from g2o_frontend_tpu_torch.solvers import plane_slam as tps
+    from g2o_frontend_tpu_torch.solvers.control import control_optimize_ba
+    from g2o_frontend_tpu_torch.utils.evaluation import ate_xy
+
+    device, t14 = ctx["device"], time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) grid SLAM, the main path of this slice
+    world = simulate_laser_world(LaserWorldConfig(**GRID_WORLD))
+    gt = world["gt_poses"].astype(np.float64)
+    odo = odometry_path(gt[0], world["odom_deltas"])
+    n = len(world["scans"])
+    slam = models.build("grid_slam", device=device, **GRID_SLAM)
+    with Recorder(gs, "correlative_match_multires", keep=True) as matches, Recorder(gs, "build_likelihood_map") as maps:
+        track_s = drive_scans(slam, world)
+        chi2, opt_s = host_s(lambda: slam.optimize(iters=10, cg_iters=100))
+    match_ms, map_ms = matches.ms(), maps.ms()
+    st = slam.stats()
+    est = np.asarray(slam.poses, np.float64)
+    ate, ate_odo = ate_xy(est[:, :2], gt[:, :2])["rmse"], ate_xy(odo[:, :2], gt[:, :2])["rmse"]
+    spec = slam._spec()
+    say("slice5", f"(a) grid SLAM, {n} scans, {spec.rows}x{spec.cols} grids at {spec.resolution} m: {track_s:.2f} s, "
+        f"{n / track_s:.2f} scans/s; {len(match_ms)} matches, median {np.median(match_ms):.3f} ms (CUDA events); "
+        f"{len(map_ms)} map rebuilds, median {np.median(map_ms):.3f} ms; optimize(iters=10, cg_iters=100) "
+        f"{opt_s:.3f} s, chi2 {chi2:.4f}; {st['n_submaps']} submaps, {st['n_edges']} edges; ATE rmse against the "
+        f"ground truth {ate:.4f} m (odometry {ate_odo:.4f} m, {ate / ate_odo:.3f}x)")
+    check(np.isfinite(chi2) and st["n_submaps"] == 1 + n // slam.cfg.scans_per_submap, "grid SLAM failed")
+    say("slice5", "(a) its edges against the ground truth: " + edge_errors(slam, gt))
+    step = np.deg2rad(slam.cfg.theta_step_deg)
+    (equal, near, far, worst), re_s = host_s(lambda: recheck_matches(matches.calls, spec.resolution, step))
+    say("slice5", f"(a) the card's {len(matches.calls)} matches rerun on the CPU ({re_s:.1f} s): {equal} give the "
+        f"CPU's pose, {near} ties within one cell and one theta step, {len(far)} ties farther apart "
+        f"{[(np.round(g, 4).tolist(), np.round(c, 4).tolist(), sc) for g, c, sc in far]} (card, CPU, score); "
+        f"scores within {worst:.2e} of the CPU's")
+    check(equal >= 0.99 * len(matches.calls), f"only {equal} of {len(matches.calls)} matches give the CPU's pose")
+    slam_cpu = models.build("grid_slam", device=cpu, **GRID_SLAM)
+    cpu_s = drive_scans(slam_cpu, world)
+    chi2_cpu = slam_cpu.optimize(iters=10, cg_iters=100)
+    est_cpu = np.asarray(slam_cpu.poses, np.float64)
+    ate_cpu = ate_xy(est_cpu[:, :2], gt[:, :2])["rmse"]
+    say("slice5", f"(a) the same scans on the CPU: {cpu_s:.2f} s, {slam_cpu.stats()}, chi2 {chi2_cpu:.4f}, ATE "
+        f"{ate_cpu:.4f} m; largest position difference to the card {np.abs(est - est_cpu)[:, :2].max():.3e} m")
+    check(slam_cpu.stats()["n_submaps"] == st["n_submaps"], "the card and the CPU made different submap counts")
+    fixture = simulate_laser_world(LaserWorldConfig(**GRID_FIXTURE))
+    fix = models.build("grid_slam", device=device, **GRID_FIXTURE_SLAM)
+    fix_s = drive_scans(fix, fixture)
+    fix.optimize(iters=10, cg_iters=100)
+    fgt = fixture["gt_poses"].astype(np.float64)
+    f_ate = ate_xy(np.asarray(fix.poses, np.float64)[:, :2], fgt[:, :2])["rmse"]
+    f_odo = ate_xy(odometry_path(fgt[0], fixture["odom_deltas"])[:, :2], fgt[:, :2])["rmse"]
+    say("slice5", f"(a) the JAX package's ground-truth fixture (tests/test_grid_slam.py:89, {len(fgt)} scans, "
+        f"{fix._spec().rows}x{fix._spec().cols}): {fix_s:.2f} s, ATE {f_ate:.4f} m against the odometry's {f_odo:.4f} m "
+        f"({f_ate / f_odo:.3f}x)")
+    check(f_ate < 0.75 * f_odo and f_ate < 0.35, f"grid SLAM ATE {f_ate:.4f} m on the fixture is not below 0.75x the "
+          f"odometry's {f_odo:.4f} m and 0.35 m")
+    warm = models.build("grid_slam", device=device, **GRID_SLAM)
+    drive_scans(warm, world, range(40))
+    _, wall, dev, ops, syncs = profile_frames(lambda: drive_scans(warm, world, range(40, 60)))
+    say("slice5", f"(a) scans 40-59 under torch.profiler: per scan wall {wall / 20:.3f} ms, device {dev / 20:.4f} ms "
+        f"({100.0 * dev / wall:.1f}% busy), {ops / 20:.1f} device operations, {syncs / 20:.2f} host syncs")
+
+    # (b) line SLAM over the same scans
+    line_runs, chi2_l, extracted = {}, {}, {}
+    for dev_ in (device, cpu):
+        drv = models.build("line_slam", device=dev_)
+        with Recorder(ls, "extract_lines", keep=True) as ext, Recorder(ls, "optimize_line_graph") as solves:
+            run_s = drive_scans(drv, world)
+            merged = drv.merge_landmarks()
+            chi2_l[dev_.type], final_s = host_s(drv.optimize)
+        extracted[dev_.type] = [out for _, _, out in ext.calls]
+        est_l = np.asarray(drv.poses, np.float64)
+        line_runs[dev_.type] = (drv.stats(), ate_xy(est_l[:, :2], gt[:, :2])["rmse"])
+        times = (f"extract_lines median {np.median(ext.ms()):.3f} ms, {len(solves.events)} solves, median "
+                 f"{np.median(solves.ms()) / 1000.0:.3f} s a solve (CUDA events)" if dev_.type == "cuda" else "")
+        say("slice5", f"(b) line SLAM on {dev_.type}: {run_s:.2f} s for {n} scans ({n / run_s:.2f} scans/s; a solve "
+            f"every {drv.cfg.optimize_each_n}); {times}; merge_landmarks merged {merged}, final optimize "
+            f"{final_s:.3f} s, chi2 {chi2_l[dev_.type]:.4f}; {drv.stats()}; ATE rmse {line_runs[dev_.type][1]:.4f} m "
+            f"(odometry {ate_odo:.4f} m)")
+    same = [bool(torch.equal(a.mask.cpu(), b.mask) and torch.equal(a.n_points.cpu(), b.n_points))
+            for a, b in zip(extracted[device.type], extracted["cpu"])]
+    geo = max(float((getattr(a, f).cpu() - getattr(b, f)).abs().max()) for a, b, eq in
+              zip(extracted[device.type], extracted["cpu"], same) if eq for f in ("p0", "p1", "normal", "rho"))
+    say("slice5", f"(b) extract_lines on the card against the CPU, the same {len(same)} scans: {sum(same)} with the "
+        f"same lines (mask and point counts), endpoints, normals and rho within {geo:.2e} there")
+    check(np.isfinite(chi2_l[device.type]) and line_runs[device.type][0]["n_lines"] > 0, "line SLAM failed")
+
+    # (c) the plane graph
+    planes = random_planes(PLANE_BIG["n_planes"], PLANE_BIG["seed"] + 1)
+    _, _, poses7, planes_init, pp, pl = plane_world(n_poses=PLANE_BIG["n_poses"], planes=planes,
+                                                    per_pose=PLANE_BIG["per_pose"], step=PLANE_BIG["step"],
+                                                    seed=PLANE_BIG["seed"])
+    g = tps.make_plane_graph(poses7, planes_init, pp, pl, device=device)
+    (_, tr), line = solve_line(f"(c) optimize_plane_graph, {len(poses7)} poses, {len(planes)} planes, {len(pl)} plane "
+                               f"edges, {len(pp)} odometry edges, iters=15, cg_iters=60",
+                               lambda: tps.optimize_plane_graph(g, iters=15, cg_iters=60),
+                               lambda: tps.optimize_plane_graph(g, iters=1, cg_iters=60), lambda t: len(t) - 1)
+    say("slice5", line)
+    _, tr_cpu = tps.optimize_plane_graph(tps.make_plane_graph(poses7, planes_init, pp, pl, device=cpu), iters=3,
+                                         cg_iters=60)
+    ok, rel = trace_close(tr[:4], tr_cpu, 1e-3)
+    say("slice5", f"(c) trace {[round(float(x), 4) for x in tr]}; the first 3 LM iterations on the CPU within {rel:.2e}")
+    check(ok and float(tr[-1]) < 0.05 * float(tr[0]), "the plane graph's trace differs from the CPU's or stalled")
+
+    # (d) BA
+    _, _, poses7, points_init, obs = ba_world(**BA_BIG)
+    ba = tba.make_ba_problem(poses7, points_init, obs, device=device)
+    (_, tr), line = solve_line(f"(d) optimize_ba, {len(poses7)} poses, {len(points_init)} points, {len(obs[0])} "
+                               "observations, iters=10, cg_iters=50",
+                               lambda: tba.optimize_ba(ba, iters=10, cg_iters=50),
+                               lambda: tba.optimize_ba(ba, iters=1, cg_iters=50), lambda t: len(t) - 1)
+    say("slice5", line)
+    _, tr_cpu = tba.optimize_ba(tba.make_ba_problem(poses7, points_init, obs, device=cpu), iters=2, cg_iters=50)
+    ok, rel = trace_close(tr[:3], tr_cpu, 1e-3)
+    say("slice5", f"(d) trace {[round(float(x), 4) for x in tr]}; the first 2 LM iterations on the CPU within {rel:.2e}")
+    check(ok and float(tr[-1]) < 0.01 * float(tr[0]), "BA's trace differs from the CPU's or stalled")
+    _, _, poses7, points_init, obs = ba_world(**BA_CONTROL)
+    _, tr = tba.optimize_ba(tba.make_ba_problem(poses7, points_init, obs, device=device), iters=10, cg_iters=50)
+    ctl, ctl_s = host_s(lambda: control_optimize_ba(tba.make_ba_problem(poses7, points_init, obs, device=cpu)))
+    say("slice5", f"(d) {len(poses7)} poses, {len(points_init)} points, {len(obs[0])} observations: chi2 "
+        f"{float(tr[-1]):.4f} against the float64 control's {ctl['chi2']:.4f} ({float(tr[-1]) / ctl['chi2']:.6f}x; "
+        f"control {ctl['iters']} LM iterations, {ctl_s:.2f} s on the host)")
+    check(float(tr[-1]) <= 1.01 * ctl["chi2"], "BA is not within 1.01x the float64 control")
+    say("slice5", f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -1571,6 +1938,7 @@ def run(out_dir):
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
     phase_backend(ctx, out_dir)  # 12
     phase_slam2d(ctx, out_dir)  # 13
+    phase_slice5(ctx, out_dir)  # 14
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

@@ -7,13 +7,18 @@ never ``jax``, and nothing of the JAX package: the numpy-only modules it
 needs from there (``io/tum.py``, ``io/boss.py``, ``io/image_codec.py``,
 ``io/g2o.py``, ``io/sensors.py``, ``graph/map_manager.py``,
 ``graph/pipeline.py``, ``ops/voronoi_graph.py``, ``solvers/control.py``,
-``native/fastg2o.cpp`` and the numpy part of ``slam/simulator.py``) are
-copied.
+``slam/validated_slam.py``, ``utils/viz.py``, ``native/fastg2o.cpp`` and
+the numpy part of ``slam/simulator.py``) are copied.
 
 Slice 1 is PWN dense RGB-D odometry; slice 2 is PWN SLAM with loop closing;
-the rest of PWN follows; slice 3 is the 2D pose-graph backend:
+the rest of PWN follows; slice 3 is the 2D pose-graph backend; slice 4 is
+2D SLAM with unknown data association; slice 5 is laser grid SLAM, line
+SLAM, the plane graph and bundle adjustment:
 
-utils     SE2 and SE3 Lie maps, synthetic scenes, ATE, profiling.
+utils     SE2 and SE3 Lie maps, synthetic scenes, ATE, profiling, PNG
+          renderings.
+laser     Likelihood grids, FFT and coarse-to-fine correlative scan
+          matching, gradient refinement, line extraction.
 io        TUM sequences and trajectories; boss serialization and its image
           codecs; map and pytree checkpoints; .g2o files; sensor
           synchronization.
@@ -30,13 +35,18 @@ pwn       Cloud, pinhole / multi / cylindrical projectors, depth->cloud
 graph     Map manager, flat SE2 and SE3 pose graphs, map <-> solver
           reflector, stream processors.
 solvers   PCG, block-tridiagonal cyclic reduction, SE2 and SE3 LM
-          optimizers, the dense and Schur-complement SE2 solvers, the
-          float64 host control.
+          optimizers, the dense and Schur-complement SE2 solvers, the line
+          and plane landmark graphs, Schur-complement BA, the float64 host
+          control.
+ransac    Batched RANSAC hypotheses and their solvers.
 slam      Keyframe tracker, matcher, loop closer, map merger with cloud
-          fusion, manifold Voronoi extractor, world simulators.
+          fusion, manifold Voronoi extractor, world simulators, the 2D
+          feature tracker with constellations and graph merge, submap grid
+          SLAM, line SLAM.
+models    Named pipeline presets (``models.build``).
 apps      The ``pwn_odometry``, ``pwn_slam``, ``cloud_aligner``,
-          ``profile_gather``, ``graph_optimizer``, ``boss_tools`` and
-          ``tracker_parity`` command lines.
+          ``profile_gather``, ``graph_optimizer``, ``boss_tools``,
+          ``tracker_parity`` and ``tracker2d`` command lines.
 conf      A reference-format PWN SLAM pipeline for the bundled sequence.
 
 Float32 matrix products and convolutions must not drop to TF32: the 6x6

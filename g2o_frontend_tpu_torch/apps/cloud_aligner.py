@@ -3,13 +3,15 @@
 
 Aligns two depth images (16-bit TUM PNGs, .npy float meters, or reference
 `.pwn` cloud files, re-rendered through the projector like the reference
-app) and prints the transform and statistics as one JSON line. The JAX
-app's ``--viz-prefix`` (matplotlib renderings) is not ported.
+app) and prints the transform and statistics as one JSON line. With
+``--viz-prefix P`` it also writes P_ref_depth.png, P_cur_depth.png and
+P_merged.png (both clouds, the current one moved by the result, seen from
+above) through `utils/viz.py`, which needs matplotlib.
 
 Usage:
   python -m g2o_frontend_tpu_torch.apps.cloud_aligner REF CUR [--device cuda]
       [--scale 2] [--fx 525 --fy 525 --cx 319.5 --cy 239.5]
-      [--rows 480 --cols 640] [--outer-iterations 10]
+      [--rows 480 --cols 640] [--outer-iterations 10] [--viz-prefix out]
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ def _parser():
     ap.add_argument("--outer-iterations", type=int, default=10)
     ap.add_argument("--rows", type=int, default=480, help="rows of a .pwn file's rendered depth")
     ap.add_argument("--cols", type=int, default=640, help="cols of a .pwn file's rendered depth")
+    ap.add_argument("--viz-prefix", default=None, help="write the depths and the aligned clouds as PNGs to PREFIX_*")
     return ap
 
 
@@ -63,6 +66,17 @@ def _load_depth(path, args):
     return img
 
 
+def _write_viz(prefix, d_ref, d_cur, ref, cur, T):
+    from ..utils.viz import plot_cloud_topdown, plot_depth
+
+    plot_depth(prefix + "_ref_depth.png", d_ref, "reference depth")
+    plot_depth(prefix + "_cur_depth.png", d_cur, "current depth")
+    merged = np.concatenate([ref.points.reshape(-1, 3).cpu().numpy(),
+                             cur.points.reshape(-1, 3).cpu().numpy() @ T[:3, :3].T + T[:3, 3]])
+    valid = np.concatenate([ref.valid.reshape(-1).cpu().numpy(), cur.valid.reshape(-1).cpu().numpy()])
+    plot_cloud_topdown(prefix + "_merged.png", merged, valid, title="aligned clouds (top-down)")
+
+
 def run(argv=None) -> dict:
     """Parse `argv`, align the pair; returns the result dict."""
     args = _parser().parse_args(argv)
@@ -79,6 +93,8 @@ def run(argv=None) -> dict:
                 for d in (d_ref, d_cur))
     res = align(ref, cur, proj, config=AlignerConfig(outer_iterations=args.outer_iterations))
     T = res.T.double().cpu().numpy()
+    if args.viz_prefix:
+        _write_viz(args.viz_prefix, d_ref, d_cur, ref, cur, T)
     return {
         "device": str(device),
         "transform": T.tolist(),

@@ -5,7 +5,11 @@ graphs, maps, merged models and plane sets. Clouds, `PoseGraph2D`s,
 `PoseGraph3D`s, `MergedModel`s and `PlaneSet`s cross as dicts of numpy
 arrays keyed by their field names (the two packages share names and
 layouts); configs cross as any object with the port config's fields, JAX's
-included, read by attribute so that JAX is never imported. A `MapManager`
+included, read by attribute so that JAX is never imported. The slice-5 graphs
+(`LineGraph`, `PlaneGraph`, `BAProblem`) cross from the JAX package's padded
+arrays to the port's exact-count tensors (`line_graph_from_numpy`, ...),
+and a likelihood map with its `GridSpec` through
+`likelihood_map_from_numpy`. A `MapManager`
 crosses through the checkpoint archive that both packages read and write
 (`io.checkpoint.save_map` / `load_map`), any NamedTuple or dataclass of
 arrays through `io.checkpoint.save_pytree` / `load_pytree`, and a cloud the
@@ -20,7 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .graph.store import PoseGraph2D, PoseGraph3D
+from .graph.store import PoseGraph2D, PoseGraph3D, _tensors
+from .laser.scan_matcher import GridSpec
 from .pwn.aligner import AlignerConfig
 from .pwn.cloud import Cloud
 from .pwn.converter import ConverterConfig
@@ -28,6 +33,9 @@ from .pwn.merger import MergedModel
 from .pwn.planes import PlaneSet
 from .pwn.projector import PinholeProjector
 from .slam.map_closer import CloserConfig
+from .solvers.ba import BAProblem
+from .solvers.line_slam import LineGraph
+from .solvers.plane_slam import PlaneGraph
 
 _CONFIGS = (PinholeProjector, ConverterConfig, AlignerConfig, CloserConfig)
 
@@ -94,6 +102,82 @@ def pose_graph2d_from_numpy(arrays, device="cuda") -> PoseGraph2D:
 def pose_graph2d_to_numpy(g: PoseGraph2D) -> dict:
     """PoseGraph2D -> {field: numpy array} on the host."""
     return {f.name: getattr(g, f.name).detach().cpu().numpy() for f in dataclasses.fields(PoseGraph2D)}
+
+
+def _prefix(mask) -> int:
+    """The count of a padded array's valid rows, which must come first."""
+    mask = np.asarray(mask, bool)
+    n = int(mask.sum())
+    if not mask[:n].all():
+        raise ValueError("the valid rows of a padded array must come first")
+    return n
+
+
+def _unpad(cls, arrays, rows: dict, device):
+    """A padded {field: array} -> `cls` at exact counts: `rows` maps each
+    mask field to the fields it counts (itself included); `fixed` follows
+    `pose_mask`. Masks and `fixed` bool, `*_ij` int64, the rest float32."""
+    out = {}
+    for mask, fields in rows.items():
+        n = _prefix(arrays[mask])
+        for name in fields:
+            a = np.array(arrays[name])[:n]
+            out[name] = a.astype(bool) if name.endswith("mask") or name == "fixed" else (
+                a.astype(np.int64) if name.endswith("_ij") else a)
+    return _tensors(cls, out, torch.float32, device)
+
+
+def _graph_rows(lm, lm_mask):
+    return {"pose_mask": ("poses", "pose_mask", "fixed"), lm_mask: (lm, lm_mask),
+            "pp_mask": ("pp_ij", "pp_meas", "pp_info", "pp_mask"), "pl_mask": ("pl_ij", "pl_meas", "pl_info", "pl_mask")}
+
+
+def _to_numpy(tup) -> dict:
+    return {name: t.detach().cpu().numpy() for name, t in tup._asdict().items()}
+
+
+def line_graph_from_numpy(arrays, device="cuda") -> LineGraph:
+    """{field: array} of a JAX LineGraph (padded to powers of two) -> the
+    port's LineGraph on `device` at its exact counts."""
+    return _unpad(LineGraph, arrays, _graph_rows("lines", "line_mask"), device)
+
+
+def line_graph_to_numpy(g: LineGraph) -> dict:
+    """LineGraph -> {field: numpy array} on the host."""
+    return _to_numpy(g)
+
+
+def plane_graph_from_numpy(arrays, device="cuda") -> PlaneGraph:
+    """{field: array} of a JAX PlaneGraph (padded) -> the port's PlaneGraph
+    on `device` at its exact counts."""
+    return _unpad(PlaneGraph, arrays, _graph_rows("planes", "plane_mask"), device)
+
+
+def plane_graph_to_numpy(g: PlaneGraph) -> dict:
+    """PlaneGraph -> {field: numpy array} on the host."""
+    return _to_numpy(g)
+
+
+def ba_problem_from_numpy(arrays, device="cuda") -> BAProblem:
+    """{field: array} of a JAX BAProblem (padded) -> the port's BAProblem on
+    `device` at its exact counts."""
+    rows = {"pose_mask": ("poses", "pose_mask", "fixed"), "point_mask": ("points", "point_mask"),
+            "obs_mask": ("obs_ij", "obs_z", "obs_info", "obs_mask")}
+    return _unpad(BAProblem, arrays, rows, device)
+
+
+def ba_problem_to_numpy(ba: BAProblem) -> dict:
+    """BAProblem -> {field: numpy array} on the host."""
+    return _to_numpy(ba)
+
+
+def likelihood_map_from_numpy(grid, spec, device="cuda"):
+    """A JAX likelihood map (as numpy) and any object with a GridSpec's
+    fields (JAX's included) -> (float32 (H, W) tensor on `device`, the
+    port's GridSpec)."""
+    names = [f.name for f in dataclasses.fields(GridSpec)]
+    port_spec = GridSpec(**{n: getattr(spec, n) for n in names})
+    return torch.as_tensor(np.array(grid, np.float32), device=device), port_spec
 
 
 def config_from(obj):

@@ -116,6 +116,23 @@ def _tensors(cls, arrays: dict, dtype, device):
     return cls(**{name: field(a) for name, a in arrays.items()})
 
 
+def _edge_arrays(edges, dz: int):
+    """(i, j, z, info) host tuples -> (ij int64 (E, 2), z (E, dz), info
+    (E, dw, dw), mask (E,) all True), dw the information's side."""
+    ij = np.array([e[:2] for e in edges], np.int64).reshape(-1, 2)
+    z = np.array([e[2] for e in edges], np.float64).reshape(-1, dz)
+    w = np.array([e[3] for e in edges], np.float64)
+    dw = w.shape[-1] if len(edges) else dz
+    return ij, z, w.reshape(-1, dw, dw), np.ones(len(edges), bool)
+
+
+def _fixed_rows(n: int, fixed_idx) -> np.ndarray:
+    """(n,) bool, True at the indices of `fixed_idx` below n."""
+    fixed = np.zeros(n, bool)
+    fixed[[i for i in fixed_idx if i < n]] = True
+    return fixed
+
+
 def graph2d_from_log(
     log: G2OLog,
     dtype=torch.float32,

@@ -16,10 +16,6 @@ Families (reference counterparts):
 - ``grid_slam``         — submap scan-matching SLAM (`mapper/graph_slam`)
 - ``line_slam``         — 2D line-landmark SLAM (`line_alignment`)
 
-``grid_slam`` and ``line_slam`` need the laser and line modules, which the
-port has not taken yet (its slice 5): building them raises a ValueError
-that says so.
-
 Use ``build(name, **overrides)`` or the family functions directly; every
 return value is a tracker object with a ``process_*`` ingest method.
 """
@@ -139,18 +135,20 @@ def tracker2d(recipe: str | None = None, device="cuda", **kw: Any):
     return FeatureTracker2D(Tracker2DConfig(**base), device=device)
 
 
-def _not_ported(name: str):
-    raise ValueError(f"model family {name!r} needs the laser and line modules, which wait for slice 5 of the port")
+def grid_slam(device="cuda", **kw: Any):
+    """Submap grid SLAM (`GridSlam2D`) on `device`; `kw` are
+    `GridSlamConfig` fields."""
+    from ..slam.grid_slam import GridSlam2D, GridSlamConfig
+
+    return GridSlam2D(GridSlamConfig(**kw), device=device)
 
 
-def grid_slam(**kw: Any):
-    """Submap grid SLAM (`GridSlam2D`): waits for slice 5 of the port."""
-    _not_ported("grid_slam")
+def line_slam(device="cuda", **kw: Any):
+    """2D line-landmark SLAM (`LineSlam2D`) on `device`; `kw` are
+    `LineSlam2DConfig` fields."""
+    from ..slam.line_slam import LineSlam2D, LineSlam2DConfig
 
-
-def line_slam(**kw: Any):
-    """2D line-landmark SLAM (`LineSlam2D`): waits for slice 5 of the port."""
-    _not_ported("line_slam")
+    return LineSlam2D(LineSlam2DConfig(**kw), device=device)
 
 
 FAMILIES = {

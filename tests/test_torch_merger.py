@@ -23,7 +23,8 @@ Tolerances:
   tests/test_torch_aligner.py's end-to-end tolerances, T within rtol 1e-4
   and atol 1e-5, inliers within 2, chi2 within rtol 1e-3, valid equal;
   with each package's own clouds, tests/test_torch_tracker.py's 2e-3 on T
-  and inliers within 1%.
+  and inliers within 1%; with `--viz-prefix` its three PNGs are written and
+  the result is the same.
 """
 import contextlib
 import dataclasses
@@ -336,3 +337,15 @@ def test_cloud_aligner_own_clouds_matches_jax(tmp_path):
     rj = json.loads(out.getvalue().strip().splitlines()[-1])
     np.testing.assert_allclose(rt["transform"], rj["transform"], atol=2e-3)
     assert abs(rt["inliers"] - rj["inliers"]) <= 0.01 * rj["inliers"] and rt["valid"] == rj["valid"]
+
+
+def test_cloud_aligner_viz_prefix_writes_pngs(tmp_path):
+    """`--viz-prefix` (JAX apps/cloud_aligner.py:92-106): the two depths and
+    the aligned clouds as PNGs, the JSON result unchanged."""
+    paths, opts = _frames(tmp_path, "png")
+    prefix = str(tmp_path / "viz")
+    with_viz = tapp.run(paths + opts + ["--device", "cpu", "--viz-prefix", prefix])
+    assert with_viz == tapp.run(paths + opts + ["--device", "cpu"])
+    for name in ("_ref_depth.png", "_cur_depth.png", "_merged.png"):
+        png = (tmp_path / ("viz" + name)).read_bytes()
+        assert png[:8] == b"\x89PNG\r\n\x1a\n" and len(png) > 1000, name

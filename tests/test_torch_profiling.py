@@ -93,5 +93,9 @@ def test_entry_points_default_to_cuda():
                  "slam.feature_tracker.FeatureTracker2D", "slam.constellation.match_constellations",
                  "slam.graph_merge.match_graphs", "slam.graph_merge.merge_graphs", "slam.graph_merge.overlap_score",
                  "slam.graph_merge.map_entropy", "models.pwn_rgbd_odometry", "models.tracker2d",
-                 "apps.tracker2d --device"):
+                 "apps.tracker2d --device", "models.grid_slam", "models.line_slam", "slam.grid_slam.GridSlam2D",
+                 "slam.line_slam.LineSlam2D", "solvers.line_slam.make_line_graph",
+                 "solvers.line_slam.line_graph_from_log", "solvers.plane_slam.make_plane_graph",
+                 "solvers.ba.make_ba_problem", "convert.line_graph_from_numpy", "convert.plane_graph_from_numpy",
+                 "convert.ba_problem_from_numpy", "convert.likelihood_map_from_numpy"):
         assert f"g2o_frontend_tpu_torch.{name}" in found, name

@@ -107,7 +107,7 @@ def test_map_manager_callbacks():
 @pytest.mark.parametrize("module", ["graph/map_manager.py", "io/tum.py", "io/boss.py", "io/image_codec.py",
                                     "graph/pipeline.py", "ops/voronoi_graph.py", "io/g2o.py", "solvers/control.py",
                                     "io/sensors.py", "slam/simulator.py", "native/fastg2o.cpp",
-                                    "slam/validated_slam.py"])
+                                    "slam/validated_slam.py", "utils/viz.py"])
 def test_host_module_copies_match_jax(module):
     """The port keeps its own copies of these numpy-only modules; apart from
     the module docstring their code is the JAX package's. Of

@@ -28,6 +28,7 @@ Tolerances:
 - `tracker2d --device cpu` on a simulated noassoc log: its JSON line equal
   to a direct `FeatureTracker2D` run's.
 """
+import dataclasses
 import functools
 import json
 
@@ -326,13 +327,20 @@ def test_tracker2d_app_matches_a_direct_run(tmp_path, capsys):
 
 
 def test_family_registry():
-    """tests/test_models.py:8, and slice 5's families say why they wait."""
+    """tests/test_models.py:8, and the grid and line SLAM families build on
+    the CPU and ingest a scan (tests/test_models.py:34), as JAX's do."""
     assert set(models.FAMILIES) == set(jmodels.FAMILIES)
     with pytest.raises(ValueError, match="unknown family"):
         models.build("nope")
+    ranges = np.full(180, 4.0, np.float32)
+    angles = np.linspace(-np.pi / 2, np.pi / 2, 180).astype(np.float32)
     for name in ("grid_slam", "line_slam"):
-        with pytest.raises(ValueError, match="slice 5"):
-            models.build(name)
+        drv, ref = models.build(name, device="cpu"), jmodels.build(name)
+        assert drv.device == torch.device("cpu") and dataclasses.asdict(drv.cfg) == dataclasses.asdict(ref.cfg)
+        assert drv.process_scan(ranges, angles, np.zeros(3)) == ref.process_scan(ranges, angles, np.zeros(3))
+        assert drv.stats() == ref.stats()
+    tuned = models.build("grid_slam", device="cpu", map_half_size=4.0, scans_per_submap=5)
+    assert tuned.cfg.map_half_size == 4.0 and tuned._spec().rows == 160
 
 
 def test_pwn_families_ingest_and_compose():
