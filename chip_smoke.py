@@ -2,8 +2,8 @@
 """GPU smoke run of the PyTorch port: PWN dense RGB-D odometry (slice 1),
 PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN,
 the 2D pose-graph backend (slice 3), 2D SLAM with unknown data
-association (slice 4) and laser grid SLAM, line SLAM, the plane graph and
-BA (slice 5).
+association (slice 4), laser grid SLAM, line SLAM, the plane graph and BA
+(slice 5) and the distributed solvers (slice 6).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -101,7 +101,21 @@ Phases, one line each or more, any failure exits non-zero:
      the card and on the CPU; (c) the plane graph at 1,000 poses and 60
      planes and (d) BA at 200 poses and 20,000 points, each trace's first
      LM iterations within rtol 1e-3 of the CPU's, and a 30-pose BA within
-     1.01x the float64 control.
+     1.01x the float64 control;
+ 15. slice 6 (no kernel), the distributed solvers on 8 shards stacked on
+     the card (StackedMesh), each step also on the CPU: (a) the halo
+     exchange in both wire modes and SPIKE at test size against dense
+     oracles; (b) optimize_se2_partitioned (jacobi, chain) and
+     optimize_se2_schur_partitioned on phase 12's 21,662-DOF world, the
+     jacobi trace against the single-device solver, the Schur one within
+     1.01x the float64 control, with the communication volume; (c) the
+     SE3 SPIKE solve on the 300-pose world within 1.01x its control; (d)
+     the edge-sharded SE2, SE3 (2,000 poses) and BA (160,000
+     observations) solvers against the single-device ones; (e) every
+     solver of (b)-(d) on a ProcessMesh over NCCL at world size 1 against
+     StackedMesh(1); (f) graph_optimizer --devices 8. Each solve prints
+     its LM iterations/s, the busy share of one LM iteration and the
+     operations of one CG iteration.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -1183,6 +1197,7 @@ def phase_backend(ctx, out_dir):
     g, _ = graph2d_from_log(fast, device=device)
     gc, _ = graph2d_from_log(fast, device="cpu")
     ctl, ctl_s = host_s(lambda: control_optimize_se2(gc))
+    ctx["victoria"] = dict(path=path, g=g, gc=gc, ctl=ctl)  # for phase 15
     say("backend", f"(b) control_optimize_se2 (float64, host): chi2 {ctl['chi2']:.6f} in {ctl['iters']} LM "
         f"iterations, {ctl_s:.2f} s")
     woodbury = 2 * g.landmarks.shape[0] <= sp.WOODBURY_MAX_DIM
@@ -1273,6 +1288,7 @@ def phase_backend(ctx, out_dir):
                                    lambda: pg.optimize_se3(g3, **{**caps, "iters": 1}), lambda st: caps["iters"],
                                    lambda st: st.cg_iters)
         ratio = float(s3.chi2[-1]) / ctl3["chi2"]
+        ctx.setdefault("se3", {})[cfg.n_poses] = (g3, ctl3)  # for phase 15
         say("backend", line + f"; chi2 {float(s3.chi2[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x")
         check(np.isfinite(ratio), "non-finite SE3 chi2")
         if cfg.n_poses == 300:  # the gate of bench.py's SE3 world (the 2,000-pose one is only reported)
@@ -1874,6 +1890,7 @@ def phase_slice5(ctx, out_dir):
     # (d) BA
     _, _, poses7, points_init, obs = ba_world(**BA_BIG)
     ba = tba.make_ba_problem(poses7, points_init, obs, device=device)
+    ctx["ba_big"] = (poses7, points_init, obs)  # for phase 15
     (_, tr), line = solve_line(f"(d) optimize_ba, {len(poses7)} poses, {len(points_init)} points, {len(obs[0])} "
                                "observations, iters=10, cg_iters=50",
                                lambda: tba.optimize_ba(ba, iters=10, cg_iters=50),
@@ -1891,6 +1908,293 @@ def phase_slice5(ctx, out_dir):
         f"control {ctl['iters']} LM iterations, {ctl_s:.2f} s on the host)")
     check(float(tr[-1]) <= 1.01 * ctl["chi2"], "BA is not within 1.01x the float64 control")
     say("slice5", f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
+
+# Phase 15: slice 6, the distributed solvers, D = 8 shards stacked on the
+# card (one H100 holds every shard; NCCL runs at world size 1 in (e)). The
+# caps of (b)-(d): the gates are met inside them on the CPU at the same
+# sizes (PERF.md records the rehearsal). The CPU repeats run the first LM
+# iterations only.
+MESH_D = 8
+PART_CAPS = dict(iters=10, cg_iters=60)  # partitioned jacobi / chain, as phase 12 (c)
+SCHUR_PART_CAPS = SCHUR_CAPS
+SE3_SPIKE_CAPS = dict(iters=25, cg_iters=100, precond="spike")  # bench.py:345-373
+SE2_SHARD_CAPS = dict(iters=10, cg_iters=60)
+SE3_SHARD_CAPS = dict(iters=10, cg_iters=100)
+BA_SHARD_CAPS = dict(iters=10, cg_iters=50)  # phase 14 (d)
+CPU_LM = 2  # LM iterations repeated on the CPU
+NCCL_LM = 2  # LM iterations of each (e) run
+
+
+def random_ghosts(n_dev, B, G, seed):
+    """Random ghost directories, each shard reading up to G remote poses
+    (tests/test_halo.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in range(n_dev):
+        pool = [p for p in range(n_dev * B) if not s * B <= p < (s + 1) * B]
+        out.append(sorted(rng.choice(pool, size=int(rng.integers(0, G + 1)), replace=False).tolist()))
+    return out
+
+
+def chain_shards(n_dev, d=3, B=8, m=1, seed=0):
+    """A random SPD block-tridiagonal chain of n_dev * B blocks cut into
+    n_dev shards, and m right-hand sides: ((L, D, U, U_bnd, R) float32 with
+    the shard axis in front, R (n_dev, B, d, m); the dense float64 matrix)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = n_dev * B
+    D = np.stack([a @ a.T + (d + 2.0) * np.eye(d) for a in rng.normal(size=(n, d, d))])
+    U = rng.normal(0, 0.4, (n, d, d))
+    A = np.zeros((n * d, n * d))
+    U_loc, L_loc, U_bnd = np.zeros((n_dev, B, d, d)), np.zeros((n_dev, B, d, d)), np.zeros((n_dev, d, d))
+    for i in range(n):
+        A[i * d:(i + 1) * d, i * d:(i + 1) * d] = D[i]
+        if i + 1 < n:
+            A[i * d:(i + 1) * d, (i + 1) * d:(i + 2) * d], A[(i + 1) * d:(i + 2) * d, i * d:(i + 1) * d] = U[i], U[i].T
+            s, k = divmod(i, B)
+            if k < B - 1:
+                U_loc[s, k], L_loc[s, k + 1] = U[i], U[i].T
+            else:
+                U_bnd[s] = U[i]
+    R = rng.normal(size=(n_dev, B, d, m))
+    return [a.astype(np.float32) for a in (L_loc, D.reshape(n_dev, B, d, d), U_loc, U_bnd, R)], A
+
+
+def count_ops(fn):
+    """(fn(), the aten operations it dispatched that are not views: each a
+    host dispatch and, on the card, a kernel launch or a copy)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Counter.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counter():
+        out = fn()
+    return out, Counter.n
+
+
+def ops_per_cg(solve):
+    """Operations of one CG iteration of `solve(cg_iters)` (one LM
+    iteration), as the slope between 4 and 2 CG iterations."""
+    return (count_ops(lambda: solve(4))[1] - count_ops(lambda: solve(2))[1]) / 2
+
+
+def phase_parallel(ctx, out_dir):
+    """Phase 15: slice 6, the distributed solvers, on StackedMesh(8) on the
+    card, each step also on a StackedMesh(8) on the CPU. (a) Halo exchange
+    and SPIKE at test size against dense oracles; (b) the partitioned SE2
+    solvers (jacobi, chain) and the distributed Schur solver on phase 12's
+    world (21,662 DOF), the Schur one within 1.01x the float64 control;
+    (c) the SE3 SPIKE solve on bench.py's 300-pose world within 1.01x its
+    control; (d) the edge-sharded SE2, SE3 and BA solvers against the
+    single-device ones; (e) ProcessMesh over NCCL at world size 1 against
+    StackedMesh(1) for every solver of (b)-(d); (f) graph_optimizer
+    --devices 8 on phase 12's file against (d)'s SE2 run."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from g2o_frontend_tpu_torch.apps import graph_optimizer
+    from g2o_frontend_tpu_torch.parallel import halo, spike
+    from g2o_frontend_tpu_torch.parallel.mesh import ProcessMesh, StackedMesh, make_mesh
+    from g2o_frontend_tpu_torch.parallel.partitioned_pose_graph import (optimize_se2_partitioned,
+                                                                        optimize_se3_partitioned)
+    from g2o_frontend_tpu_torch.parallel.partitioned_schur import optimize_se2_schur_partitioned
+    from g2o_frontend_tpu_torch.parallel.sharded_ba import optimize_ba_sharded
+    from g2o_frontend_tpu_torch.parallel.sharded_pose_graph import optimize_se2_sharded
+    from g2o_frontend_tpu_torch.parallel.sharded_pose_graph3d import optimize_se3_sharded
+    from g2o_frontend_tpu_torch.solvers import ba as tba
+    from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+
+    device, t15 = ctx["device"], time.perf_counter()
+    cpu = torch.device("cpu")
+    card, host = StackedMesh(MESH_D, device), StackedMesh(MESH_D, cpu)
+
+    # (a) halo exchange and SPIKE at test size
+    n_dev, B, G = MESH_D, 16, 7
+    ghosts = random_ghosts(n_dev, B, G, seed=2)
+    rng = np.random.default_rng(102)
+    v, own, gh = rng.normal(size=(n_dev, B, 3)), rng.normal(size=(n_dev, B, 3)), rng.normal(size=(n_dev, G, 3))
+    for s in range(n_dev):
+        gh[s, len(ghosts[s]):] = 0.0
+    flat, r_ref = v.astype(np.float32).reshape(-1, 3), own.astype(np.float32).astype(np.float64)
+    for s in range(n_dev):
+        for pos, gid in enumerate(ghosts[s]):
+            r_ref[gid // B, gid % B] += np.float32(gh[s, pos])
+    for mode in ("ppermute", "a2a"):
+        spec = halo.build_halo_spec(ghosts, B, n_dev, G, mode=mode)
+        res = {}
+        for m in (card, host):
+            sidx, rpos = m.local(spec.send_idx, torch.int64), m.local(spec.recv_pos, torch.int64)
+            f32 = lambda a: m.local(a, torch.float32)  # noqa: E731
+            res[m.device.type] = (halo.halo_gather(f32(v), sidx, rpos, spec, m).cpu().numpy(),
+                                  halo.halo_reduce(f32(own), f32(gh), sidx, rpos, spec, m).cpu().numpy())
+        g_card, r_card = res[device.type]
+        exact = all(np.array_equal(g_card[s, pos], flat[gid]) for s in range(n_dev) for pos, gid in
+                    enumerate(ghosts[s])) and all(not g_card[s, len(ghosts[s]):].any() for s in range(n_dev))
+        err = float(np.abs(r_card - r_ref).max())
+        say("parallel", f"(a) halo {mode} (D={n_dev}, B={B}, G={G}; {sum(map(len, ghosts))} ghosts, shifts "
+            f"{list(spec.shifts)}, {halo.halo_bytes_per_exchange(spec, 3)} B and "
+            f"{halo.halo_collectives_per_exchange(spec)} collectives an exchange): gather exact {exact}, equal to the "
+            f"CPU {np.array_equal(g_card, res['cpu'][0])}; reduce against the oracle {err:.2e} (limit 1e-6)")
+        check(exact and np.array_equal(g_card, res["cpu"][0]) and err <= 1e-6, f"halo {mode} disagrees")
+    for d, m_rhs in ((3, 1), (6, 1), (3, 5)):
+        (L, Dm, U, U_bnd, R), A = chain_shards(n_dev, d, 8, m_rhs, seed=10 * n_dev + d)
+        X_ref = np.linalg.solve(A, R.astype(np.float64).reshape(-1, m_rhs)).reshape(R.shape)
+        xs = {}
+        for m in (card, host):
+            sf = spike.spike_factor(*(m.local(a) for a in (L, Dm, U, U_bnd)), m)
+            xs[m.device.type] = spike.spike_solve(sf, m.local(R[..., 0] if m_rhs == 1 else R), m).cpu().numpy()
+        X = xs[device.type].reshape(R.shape)
+        rel = float(np.abs(X - X_ref).max() / np.abs(X_ref).max())
+        vs_cpu = float(np.abs(X - xs["cpu"].reshape(R.shape)).max())
+        say("parallel", f"(a) spike_solve D={n_dev}, d={d}, {m_rhs} right-hand sides: against the dense float64 "
+            f"solve {rel:.2e} of its largest entry (limit 2e-4), against the CPU {vs_cpu:.2e}")
+        check(np.allclose(X, X_ref, rtol=2e-4, atol=2e-4), f"spike_solve (d={d}, m={m_rhs}) disagrees")
+
+    # (b) the partitioned SE2 solvers on phase 12's world
+    vic = ctx["victoria"]
+    g, gc, ctl = vic["g"], vic["gc"], vic["ctl"]
+    comm = None
+    for precond in ("jacobi", "chain"):
+        caps = dict(precond=precond, **PART_CAPS)
+        (tr, st), line = solve_line(
+            f"(b) optimize_se2_partitioned D={MESH_D} {caps}", lambda: optimize_se2_partitioned(g, card, **caps)[1:],
+            lambda: optimize_se2_partitioned(g, card, **{**caps, "iters": 1}), lambda out: caps["iters"],
+            lambda out: out["cg_total"])
+        comm = st["comm"]
+        ref = pg.optimize_se2(g, precond=precond, **PART_CAPS)[1].chi2
+        _, tr_cpu, _ = optimize_se2_partitioned(gc, host, **{**caps, "iters": CPU_LM})
+        ok_cpu, rel_cpu = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
+        ok_one, rel_one = trace_close(tr, ref, 1e-3 if precond == "jacobi" else float("inf"))
+        per_cg = ops_per_cg(lambda c: optimize_se2_partitioned(g, card, **{**caps, "iters": 1, "cg_iters": c}))
+        say("parallel", line + f"; chi2 {float(tr[-1]):.4f} ({float(tr[-1]) / ctl['chi2']:.4f}x the control, not "
+            f"gated); single-device optimize_se2 ({precond}) {float(ref[-1]):.4f}, traces within {rel_one:.2e}"
+            f"{' (limit 1e-3)' if precond == 'jacobi' else ' (a global chain: not gated)'}; first {CPU_LM} LM "
+            f"iterations on the CPU within {rel_cpu:.2e} (limit 1e-3); {per_cg:.0f} operations a CG iteration")
+        check(ok_cpu and (ok_one or precond == "chain"), f"partitioned {precond} traces disagree")
+    say("parallel", f"(b) comm_volume: {comm['bytes_per_matvec']} B and {comm['collectives_per_matvec']} collectives a "
+        f"matvec, {comm['bytes_per_lm_iter']} B an LM iteration; halo {comm['halo_mode']} shifts {comm['halo_shifts']}"
+        f" ({comm['halo_slots']} slots), landmarks {comm['halo_lm_mode']} ({comm['halo_lm_slots']} slots)")
+    (tr, st), line = solve_line(
+        f"(b) optimize_se2_schur_partitioned D={MESH_D} {SCHUR_PART_CAPS}",
+        lambda: optimize_se2_schur_partitioned(g, card, **SCHUR_PART_CAPS)[1:],
+        lambda: optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": 1}),
+        lambda out: out["lm_iters"], lambda out: out["cg_total"])
+    ratio = float(tr[-1]) / ctl["chi2"]
+    _, tr_cpu, _ = optimize_se2_schur_partitioned(gc, host, **{**SCHUR_PART_CAPS, "iters": CPU_LM})
+    ok, rel = trace_close(tr[:CPU_LM + 1], tr_cpu[:CPU_LM + 1], 1e-3)
+    per_cg = ops_per_cg(lambda c: optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": 1,
+                                                                          "cg_iters": c}))
+    say("parallel", line + f"; chi2 {float(tr[-1]):.6f}, {ratio:.6f}x the control (limit 1.01); first {CPU_LM} LM "
+        f"iterations on the CPU within {rel:.2e} (limit 1e-3); {per_cg:.0f} operations a CG iteration; "
+        f"{st['replicated_psum_floats_per_cg_iter']} replicated psum floats a CG iteration, "
+        f"{st['replicated_psum_floats_per_lm_iter']} an LM iteration")
+    check(ratio <= 1.01 and ok, f"distributed Schur reached {ratio:.6f}x the control, CPU within {rel:.2e}")
+
+    # (c) SE3 SPIKE on bench.py's 300-pose world
+    g3, ctl3 = ctx["se3"][300]
+    g3c = type(g3)(*(getattr(g3, f.name).cpu() for f in dataclasses.fields(g3)))
+    (_, tr), line = solve_line(f"(c) optimize_se3_partitioned D={MESH_D} {SE3_SPIKE_CAPS}",
+                               lambda: optimize_se3_partitioned(g3, card, **SE3_SPIKE_CAPS),
+                               lambda: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1}),
+                               lambda out: SE3_SPIKE_CAPS["iters"])
+    ratio = float(tr[-1]) / ctl3["chi2"]
+    _, tr_cpu = optimize_se3_partitioned(g3c, host, **{**SE3_SPIKE_CAPS, "iters": CPU_LM})
+    ok, rel = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
+    per_cg = ops_per_cg(lambda c: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1, "cg_iters": c}))
+    say("parallel", line + f"; chi2 {float(tr[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x (limit 1.01); "
+        f"first {CPU_LM} LM iterations on the CPU within {rel:.2e} (limit 1e-3); {per_cg:.0f} operations a CG "
+        "iteration")
+    check(np.isfinite(ratio) and ratio <= 1.01 and ok, f"SE3 SPIKE reached {ratio:.6f}x its control")
+
+    # (d) the edge-sharded solvers against the single-device ones
+    poses7, points_init, obs = ctx["ba_big"]
+    ba, ba_c = (tba.make_ba_problem(poses7, points_init, obs, device=dv) for dv in (device, cpu))
+    g2k, _ = ctx["se3"][2000]
+    g2k_c = type(g2k)(*(getattr(g2k, f.name).cpu() for f in dataclasses.fields(g2k)))
+    sharded = {
+        "se2": (optimize_se2_sharded, g, gc, SE2_SHARD_CAPS, lambda: pg.optimize_se2(g, **SE2_SHARD_CAPS)[1].chi2),
+        "se3": (optimize_se3_sharded, g2k, g2k_c, SE3_SHARD_CAPS,
+                lambda: pg.optimize_se3(g2k, **SE3_SHARD_CAPS)[1].chi2),
+        "ba": (optimize_ba_sharded, ba, ba_c, BA_SHARD_CAPS, lambda: tba.optimize_ba(ba, **BA_SHARD_CAPS)[1]),
+    }
+    se2_sharded = None
+    for name, (solve, prob, prob_c, caps, single) in sharded.items():
+        (_, tr), line = solve_line(f"(d) {solve.__name__} D={MESH_D} {caps}", lambda: solve(prob, card, **caps),
+                                   lambda: solve(prob, card, **{**caps, "iters": 1}), lambda out: caps["iters"])
+        ok_one, rel_one = trace_close(tr, single(), 1e-3)
+        _, tr_cpu = solve(prob_c, host, **{**caps, "iters": CPU_LM})
+        ok_cpu, rel_cpu = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
+        se2_sharded = tr if name == "se2" else se2_sharded
+        per_cg = ops_per_cg(lambda c: solve(prob, card, **{**caps, "iters": 1, "cg_iters": c}))
+        say("parallel", line + f"; chi2 {float(tr[0]):.4f} -> {float(tr[-1]):.4f}; the single-device solver's trace "
+            f"within {rel_one:.2e}, the first {CPU_LM} LM iterations on the CPU within {rel_cpu:.2e} (limits 1e-3); "
+            f"{per_cg:.0f} operations a CG iteration")
+        check(ok_one and ok_cpu and float(tr[-1]) < float(tr[0]), f"{solve.__name__} disagrees")
+
+    # (e) ProcessMesh over NCCL at world size 1 against StackedMesh(1)
+    runs = {
+        "optimize_se2_partitioned (jacobi)": lambda m: optimize_se2_partitioned(g, m, **{**PART_CAPS,
+                                                                                       "iters": NCCL_LM})[:2],
+        "optimize_se2_partitioned (chain)": lambda m: optimize_se2_partitioned(
+            g, m, precond="chain", **{**PART_CAPS, "iters": NCCL_LM})[:2],
+        "optimize_se2_schur_partitioned": lambda m: optimize_se2_schur_partitioned(
+            g, m, **{**SCHUR_PART_CAPS, "iters": NCCL_LM})[:2],
+        "optimize_se3_partitioned (spike)": lambda m: optimize_se3_partitioned(g3, m, **{**SE3_SPIKE_CAPS,
+                                                                                       "iters": NCCL_LM}),
+        "optimize_se2_sharded": lambda m: optimize_se2_sharded(g, m, **{**SE2_SHARD_CAPS, "iters": NCCL_LM}),
+        "optimize_se3_sharded": lambda m: optimize_se3_sharded(g2k, m, **{**SE3_SHARD_CAPS, "iters": NCCL_LM}),
+        "optimize_ba_sharded": lambda m: optimize_ba_sharded(ba, m, **{**BA_SHARD_CAPS, "iters": NCCL_LM}),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            nccl = make_mesh(1, device)
+            check(isinstance(nccl, ProcessMesh), "make_mesh under torch.distributed gave no ProcessMesh")
+            # deterministic scatter-adds, so that the two runs can be held
+            # to 1e-6 (the card's float32 atomics sum in no fixed order)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for name, run_ in runs.items():
+                    (a, tr_a), nccl_s = host_s(lambda: run_(nccl))
+                    (b, tr_b), _ = host_s(lambda: run_(StackedMesh(1, device)))
+                    x_a, x_b = (getattr(x, "poses") for x in (a, b))
+                    same = bool(torch.allclose(tr_a, tr_b, rtol=1e-6, atol=0) and
+                                torch.allclose(x_a, x_b, rtol=1e-6, atol=1e-6))
+                    say("parallel", f"(e) {name}, {NCCL_LM} LM iterations on ProcessMesh (NCCL, world size 1) in "
+                        f"{nccl_s:.2f} s: trace {[round(float(t), 4) for t in tr_a]}, against StackedMesh(1) "
+                        f"max |d chi2| {float((tr_a - tr_b).abs().max()):.3e}, max |d pose| "
+                        f"{float((x_a - x_b).abs().max()):.3e} (limit rtol 1e-6)")
+                    check(same, f"{name} on NCCL differs from StackedMesh(1)")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+
+    # (f) the command line
+    out, app_s = host_s(lambda: graph_optimizer.run(
+        [vic["path"], "-o", os.path.join(out_dir, "victoria_d8.g2o"), "--devices", str(MESH_D), "--iters",
+         str(SE2_SHARD_CAPS["iters"]), "--cg-iters", str(SE2_SHARD_CAPS["cg_iters"])]))
+    rel = abs(out["chi2_final"] - float(se2_sharded[-1])) / float(se2_sharded[-1])
+    say("parallel", f"(f) graph_optimizer --devices {MESH_D} on the file: {app_s:.2f} s, chi2 "
+        f"{out['chi2_initial']:.6g} -> {out['chi2_final']:.6f}; (d)'s optimize_se2_sharded {float(se2_sharded[-1]):.6f}, "
+        f"rel diff {rel:.2e} (limit 1e-3: the card's scatter-adds sum in no fixed order)")
+    check(rel <= 1e-3 and abs(out["chi2_initial"] / float(se2_sharded[0]) - 1) <= 1e-5,
+          "graph_optimizer --devices disagrees with optimize_se2_sharded")
+    say("parallel", f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
 
 def run(out_dir):
@@ -1939,6 +2243,7 @@ def run(out_dir):
     phase_backend(ctx, out_dir)  # 12
     phase_slam2d(ctx, out_dir)  # 13
     phase_slice5(ctx, out_dir)  # 14
+    phase_parallel(ctx, out_dir)  # 15
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

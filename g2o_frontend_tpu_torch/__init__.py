@@ -13,7 +13,8 @@ the numpy part of ``slam/simulator.py``) are copied.
 Slice 1 is PWN dense RGB-D odometry; slice 2 is PWN SLAM with loop closing;
 the rest of PWN follows; slice 3 is the 2D pose-graph backend; slice 4 is
 2D SLAM with unknown data association; slice 5 is laser grid SLAM, line
-SLAM, the plane graph and bundle adjustment:
+SLAM, the plane graph and bundle adjustment; slice 6 is the distributed
+solvers:
 
 utils     SE2 and SE3 Lie maps, synthetic scenes, ATE, profiling, PNG
           renderings.
@@ -39,6 +40,10 @@ solvers   PCG, block-tridiagonal cyclic reduction, SE2 and SE3 LM
           and plane landmark graphs, Schur-complement BA, the float64 host
           control.
 ransac    Batched RANSAC hypotheses and their solvers.
+parallel  The mesh of shards (all in one process, or one torch.distributed
+          rank a device), the halo exchange, SPIKE, the edge-sharded and
+          pose-partitioned SE2 / SE3 / BA solvers and the distributed
+          Schur solver.
 slam      Keyframe tracker, matcher, loop closer, map merger with cloud
           fusion, manifold Voronoi extractor, world simulators, the 2D
           feature tracker with constellations and graph merge, submap grid

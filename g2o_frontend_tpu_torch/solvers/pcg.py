@@ -27,7 +27,8 @@ def _axpy(alpha, x, y):
     return tuple(alpha * xl + yl for xl, yl in zip(x, y))
 
 
-def pcg(hvp: Callable, b, precond: Callable, *, max_iters: int = 100, rtol: float = 1e-6):
+def pcg(hvp: Callable, b, precond: Callable, *, max_iters: int = 100, rtol: float = 1e-6,
+        tree_dot: Callable | None = None):
     """Solve ``H x = b`` with preconditioned CG.
 
     Args:
@@ -36,26 +37,32 @@ def pcg(hvp: Callable, b, precond: Callable, *, max_iters: int = 100, rtol: floa
       precond: function r -> M^{-1} r (e.g. block-Jacobi).
       max_iters: the most iterations.
       rtol: relative residual tolerance on sqrt(r.z).
+      tree_dot: optional replacement inner product, returning a 0-dim
+        tensor: a distributed solver passes a dot that sums over the shards
+        of its block vectors (`parallel/partitioned_pose_graph.py`), so
+        that every shard reads the same stopping test.
 
     Returns:
       (x, iters, final_rz): iters is a Python int, final_rz a 0-dim tensor.
     """
+    if tree_dot is None:
+        tree_dot = _dot
     x = tuple(torch.zeros_like(bl) for bl in b)
     r = tuple(b)  # r = b - H x0 with x0 = 0
     z = precond(r)
     p = z
-    rz = _dot(r, z)
+    rz = tree_dot(r, z)
     tol2 = rtol * rtol * torch.clamp_min(rz, 1e-30)
     k = 0
     while k < max_iters and bool(rz > tol2):
         hp = hvp(p)
-        php = _dot(p, hp)
+        php = tree_dot(p, hp)
         # guard against a non-PD direction (should not happen with LM damping)
         alpha = torch.where(php > 0, rz / torch.where(php > 0, php, 1e-30), 0.0)
         x = _axpy(alpha, p, x)
         r = _axpy(-alpha, hp, r)
         z = precond(r)
-        rz_new = _dot(r, z)
+        rz_new = tree_dot(r, z)
         beta = rz_new / torch.where(rz > 0, rz, 1e-30)
         p = _axpy(beta, p, z)
         rz = rz_new

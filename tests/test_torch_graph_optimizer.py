@@ -5,7 +5,9 @@
 Inputs: a `write_g2o` file of the default `simulate()` world (200 poses, 80
 landmarks) and of the SE3 world of tests/test_torch_pose_graph.py (40
 poses). Both apps run on the CPU (the port's with ``--device cpu``) at
-their defaults (15 LM iterations, 100 CG iterations).
+their defaults (15 LM iterations, 100 CG iterations), and on the SE2 file
+once more with ``--devices 2`` (edges sharded: the port's stacked mesh,
+JAX's virtual CPU mesh).
 
 Tolerances: `chi2_initial` and `chi2_final` within rtol 1e-3 of the JAX
 app's; the written vertices within atol 1e-4; every other record of the
@@ -59,11 +61,22 @@ def test_graph_optimizer_matches_jax(files, kind, tmp_path):
 
 
 def test_graph_optimizer_prints_json_and_refuses_devices(files, tmp_path, capsys):
+    """One JSON line with the JAX app's keys; ``--devices 2`` no longer
+    refuses: the edges are sharded over a stacked mesh of 2, held against
+    the JAX app's ``--devices 2`` on its virtual mesh (the tolerances of
+    `test_graph_optimizer_matches_jax`)."""
     assert tapp.main([str(files["se2"]), "-o", str(tmp_path / "o.g2o"), "--device", "cpu", "--iters", "2"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(line) == {"dim", "chi2_initial", "chi2_final", "output"}
-    with pytest.raises(SystemExit, match="sharded"):
-        tapp.run([str(files["se2"]), "--devices", "2", "--device", "cpu"])
+    rt = tapp.run([str(files["se2"]), "-o", str(tmp_path / "t.g2o"), "--devices", "2", "--device", "cpu"])
+    assert japp.main([str(files["se2"]), "-o", str(tmp_path / "j.g2o"), "--devices", "2"]) == 0
+    rj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("chi2_initial", "chi2_final"):
+        np.testing.assert_allclose(rt[key], rj[key], rtol=1e-3)
+    assert rt["chi2_final"] < 0.1 * rt["chi2_initial"]
+    lt, lj = read_g2o(tmp_path / "t.g2o"), read_g2o(tmp_path / "j.g2o")
+    for name in ("se2_poses", "xy_points"):
+        np.testing.assert_allclose(getattr(lt, name), getattr(lj, name), atol=1e-4, err_msg=name)
 
 
 def test_pose_graph2d_crosses_through_numpy():
