@@ -3,7 +3,9 @@
 PWN SLAM with loop closing (slice 2), the gather probes, the rest of PWN,
 the 2D pose-graph backend (slice 3), 2D SLAM with unknown data
 association (slice 4), laser grid SLAM, line SLAM, the plane graph and BA
-(slice 5) and the distributed solvers (slice 6).
+(slice 5), the distributed solvers (slice 6) and the system's own entry
+points (the flagship step, the multi-device dry run, the bench and the
+dataset-free evaluation protocols).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
@@ -68,8 +70,9 @@ Phases, one line each or more, any failure exits non-zero:
      landmarks (21,662 DOF): (a) the world through write_g2o and back,
      the native parser (g++ build from the checkout) equal to the Python
      one; (b) optimize_se2_schur and optimize_se2_direct each within 1.01x
-     the float64 host control, the Schur run repeated on the CPU (traces
-     within rtol 1e-3), the dense solve against its CPU run on a 1,000-pose
+     the float64 host control, the Schur run repeated on the CPU in a
+     worker process while the card goes on (traces within rtol 1e-3; the
+     same worker then runs phase 14's CPU runs), the dense solve against its CPU run on a 1,000-pose
      world; (c) the pose-only world through optimize_se2 with both
      preconditioners against the CPU; (d) landmark_covariance_se2 against
      the CPU and graph_optimizer --device cuda on the file; (e) optimize_se3
@@ -95,10 +98,10 @@ Phases, one line each or more, any failure exits non-zero:
      0.05 m) and its pose-graph solve, its ATE against the odometry's;
      every correlative match of the card rerun on the CPU (>= 99% the
      CPU's pose, the rest ties); the same scans through the port on the
-     CPU (the same submap count); the JAX package's 120-scan ground-truth
+     CPU in the worker (the same submap count); the JAX package's 120-scan ground-truth
      fixture, gated on ATE < 0.75x the odometry's and < 0.35 m; 20 scans
      under torch.profiler; (b) `models.build("line_slam")` over the same scans on
-     the card and on the CPU; (c) the plane graph at 1,000 poses and 60
+     the card and on the CPU in the worker; (c) the plane graph at 1,000 poses and 60
      planes and (d) BA at 200 poses and 20,000 points, each trace's first
      LM iterations within rtol 1e-3 of the CPU's, and a 30-pose BA within
      1.01x the float64 control;
@@ -115,7 +118,21 @@ Phases, one line each or more, any failure exits non-zero:
      solver of (b)-(d) on a ProcessMesh over NCCL at world size 1 against
      StackedMesh(1); (f) graph_optimizer --devices 8. Each solve prints
      its LM iterations/s, the busy share of one LM iteration and the
-     operations of one CG iteration.
+     operations of one CG iteration;
+ 16. the system's own entry points (kernels 1 and 2 on their paths, each
+     path's launches counted from 0): (a) `entry.entry()` on the card
+     against the CPU, the whole step and the align on the card's clouds,
+     and `entry.dryrun_multichip(8)` with its asserts; (b) the bench
+     (`apps/bench.run(["--no-cpu-control"])`, its JSON line and asserts:
+     tracker slower than align, t_err < 1 cm, the SE3 world at D = 8
+     within 1.01x its control) and one CPU run of its aligner section for
+     vs_baseline; (c) the four dataset-free EVAL sections of
+     `apps/evaluate.py` at full size, each JSON line with its wall time:
+     grid_slam_gt (ATE < 0.75x the odometry's), pwn_odometry_tum (14
+     columns a row, ATE < 0.5 m), pwn_slam (finite chi2) and the 500-frame
+     stress run without the cloud cache, gated against the JAX package's
+     CPU run (keyframes within 15%, closures >= 0.8x, no fallback,
+     evictions, keyframe ATE <= 1.25x and < 0.5 m), then with it.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
 that checks the kernel. Then one JSON line of the kernels, the card's name
@@ -712,19 +729,6 @@ def phase_gather(ctx):
     }]
 
 
-def tum_pose(p7):
-    """4x4 pose of a TUM trajectory row (tx ty tz qx qy qz qw)."""
-    import numpy as np
-
-    x, y, z, w = p7[3:7] / np.linalg.norm(p7[3:7])
-    T = np.eye(4)
-    T[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
-                 [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
-                 [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
-    T[:3, 3] = p7[:3]
-    return T
-
-
 def cpu_copy(x):
     """A tensor, or a NamedTuple of tensors, copied to the CPU."""
     return type(x)(*(t.cpu() for t in x)) if isinstance(x, tuple) else x.cpu()
@@ -1014,6 +1018,7 @@ def phase_cloud_io(ctx, out_dir):
     from g2o_frontend_tpu_torch.apps import cloud_aligner
     from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.pwn import cloud_io
+    from g2o_frontend_tpu_torch.utils.evaluation import pose7_to_T
 
     ref = ctx["ref"]
     path, again = os.path.join(out_dir, "ref.pwn"), os.path.join(out_dir, "ref_again.pwn")
@@ -1036,7 +1041,7 @@ def phase_cloud_io(ctx, out_dir):
     r = cloud_aligner.run([os.path.join(SEQ, index[0][1]), os.path.join(SEQ, index[3][1]), "--device", "cuda"])
     T = np.asarray(r["transform"])
     _, gt = tum.read_trajectory(os.path.join(SEQ, "groundtruth.txt"))
-    T_gt = np.linalg.inv(tum_pose(gt[0])) @ tum_pose(gt[3])
+    T_gt = np.linalg.inv(pose7_to_T(gt[0])) @ pose7_to_T(gt[3])
     t_err = float(np.linalg.norm(T[:3, 3] - T_gt[:3, 3]))
     say("pwn", f"(f) cloud_aligner on TUM frames 0 and 3 at 640x480: inliers {r['inliers']}, chi2 {r['chi2']:.6g}, "
         f"|t| {float(np.linalg.norm(T[:3, 3])):.4f} m, t_err against the ground truth {t_err:.3e} m, "
@@ -1087,6 +1092,41 @@ def host_s(fn):
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
+
+
+CPU_WORKER_THREADS = 2  # the worker's torch threads; the main process keeps the card fed
+
+
+def _cpu_worker_init():
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_worker(ctx):
+    """The process (spawned on first use, one for the run) that repeats the
+    long CPU runs of phases 12 and 14 while the card works on: the same
+    functions on the same inputs, at full depth, off the critical path."""
+    if "cpu_pool" not in ctx:
+        import multiprocessing
+
+        ctx["cpu_pool"] = multiprocessing.get_context("spawn").Pool(1, initializer=_cpu_worker_init)
+    return ctx["cpu_pool"]
+
+
+def cpu_schur(path):
+    """Phase 12 (b)'s Schur solve on the CPU (in the worker), on the graph
+    of the file phase 12 (a) wrote: (chi2 trace, LM iterations, CG
+    iterations, seconds)."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch.graph.store import graph2d_from_log
+    from g2o_frontend_tpu_torch.io import g2o
+    from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+
+    gc, _ = graph2d_from_log(g2o._read_g2o_native(path), device="cpu")
+    (_, st), seconds = host_s(lambda: sp.optimize_se2_schur(gc, **SCHUR_CAPS))
+    return np.asarray(st.chi2), int(st.lm_iters), int(st.cg_iters), seconds
 
 
 def solve_line(name, solve, one_iteration, lm_of, cg_of=None):
@@ -1156,7 +1196,8 @@ def phase_backend(ctx, out_dir):
     (7,120 poses, 151 landmarks, 21,662 DOF) on a simulated world. (a) The
     world through write_g2o and back through the native and the Python
     parsers; (b) optimize_se2_schur and optimize_se2_direct against the
-    float64 control, Schur again on the CPU, the dense solve on a 1,000-pose
+    float64 control, Schur again on the CPU (in the worker, read at the end
+    of the phase), the dense solve on a 1,000-pose
     world on both; (c) the pose-only world through optimize_se2 (jacobi,
     chain) on both; (d) landmark_covariance_se2 on both, graph_optimizer on
     the written file; (e) optimize_se3 (chain) on bench.py's 300-pose world
@@ -1192,6 +1233,8 @@ def phase_backend(ctx, out_dir):
         f"{len(fast.xy_ids)} landmarks, {len(world.observations)} landmark observations, {n_dof} DOF; file "
         f"{os.path.getsize(path)} B; parse ms native {1000 * native_s:.1f}, Python {1000 * python_s:.1f}; equal")
     check(n_dof == 21662, f"{n_dof} DOF, not 21,662")
+    schur_cpu = cpu_worker(ctx).apply_async(cpu_schur, (path,))  # read at the end of the phase
+    ctx["slice5_cpu"] = cpu_worker(ctx).apply_async(cpu_slice5)  # for phase 14
 
     # (b) Schur and dense solves against the float64 control
     g, _ = graph2d_from_log(fast, device=device)
@@ -1208,11 +1251,6 @@ def phase_backend(ctx, out_dir):
     ratio = float(ss.chi2[-1]) / ctl["chi2"]
     say("backend", line + f"; chi2 {float(ss.chi2[-1]):.6f}, {ratio:.6f}x the control")
     check(ratio <= 1.01, f"optimize_se2_schur reached {ratio:.6f}x the control")
-    (_, ssc), cpu_s = host_s(lambda: sp.optimize_se2_schur(gc, **SCHUR_CAPS))
-    ok, rel = trace_close(ss.chi2, ssc.chi2, 1e-3)
-    say("backend", f"(b) optimize_se2_schur on the CPU: {cpu_s:.2f} s, {ssc.lm_iters} LM / {ssc.cg_iters} CG "
-        f"iterations; traces within rtol {rel:.2e} (limit 1e-3)")
-    check(ok, f"Schur traces of the card and the CPU differ by {rel:.2e}")
     torch.cuda.reset_peak_memory_stats()
     (_, sd), line = solve_line(f"(b) optimize_se2_direct (iters={DIRECT_ITERS}, dense {n_dof}^2 float32 Cholesky)",
                                lambda: pg.optimize_se2_direct(g, iters=DIRECT_ITERS),
@@ -1281,8 +1319,7 @@ def phase_backend(ctx, out_dir):
     for label, cfg, caps in (("bench.py's 300-pose world", Simulator3DConfig(**BENCH_SE3), SE3_300_CAPS),
                              ("the default 2,000-pose world", Simulator3DConfig(), SE3_2000_CAPS)):
         g3, info = simulate_se3(cfg, device=device)
-        ctl3 = control_optimize_se3(type(g3)(*(getattr(g3, f.name).cpu() for f in dataclasses.fields(g3))),
-                                    max_iters=60)
+        ctl3 = control_optimize_se3(g3.to("cpu"), max_iters=60)
         (_, s3), line = solve_line(f"(e) optimize_se3 on {label} ({info['n_edges']} edges, {info['n_closures']} "
                                    f"closures) {caps}", lambda: pg.optimize_se3(g3, **caps),
                                    lambda: pg.optimize_se3(g3, **{**caps, "iters": 1}), lambda st: caps["iters"],
@@ -1306,6 +1343,13 @@ def phase_backend(ctx, out_dir):
                 f"{out3['chi2_initial']:.4f} -> {out3['chi2_final']:.4f} ({out3['chi2_final'] / ctl3['chi2']:.6f}x "
                 "the control)")
             check(out3["dim"] == 3 and out3["chi2_final"] < out3["chi2_initial"], "graph_optimizer on SE3 failed")
+
+    # (b)'s Schur solve repeated on the CPU, in the worker since (a)
+    trace_cpu, lm_cpu, cg_cpu, cpu_s = schur_cpu.get()
+    ok, rel = trace_close(ss.chi2, torch.from_numpy(trace_cpu), 1e-3)
+    say("backend", f"(b) optimize_se2_schur on the CPU (the worker process, alongside (b)-(e)): {cpu_s:.2f} s, "
+        f"{lm_cpu} LM / {cg_cpu} CG iterations; traces within rtol {rel:.2e} (limit 1e-3)")
+    check(ok, f"Schur traces of the card and the CPU differ by {rel:.2e}")
     say("backend", f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 
@@ -1718,6 +1762,43 @@ def drive_scans(drv, world, scans=None):
     return time.perf_counter() - t0
 
 
+def cpu_slice5():
+    """Phase 14 (a) and (b)'s runs on the CPU (in the worker): grid SLAM
+    and line SLAM over the 452-scan world, each with the card's calls;
+    the lines `extract_lines` gave for every scan, as numpy arrays."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch import models
+    from g2o_frontend_tpu_torch.slam import line_slam as ls
+    from g2o_frontend_tpu_torch.slam.simulator import LaserWorldConfig, simulate_laser_world
+
+    cpu = torch.device("cpu")
+    world = simulate_laser_world(LaserWorldConfig(**GRID_WORLD))
+    slam = models.build("grid_slam", device=cpu, **GRID_SLAM)
+    grid_s = drive_scans(slam, world)
+    chi2 = slam.optimize(iters=10, cg_iters=100)
+    grid = dict(s=grid_s, chi2=float(chi2), stats=slam.stats(), poses=np.asarray(slam.poses, np.float64))
+    extract, kept = ls.extract_lines, []
+
+    def keep(*args, **kw):
+        out = extract(*args, **kw)
+        kept.append({f: t.numpy() for f, t in out._asdict().items()})
+        return out
+
+    ls.extract_lines = keep
+    try:
+        drv = models.build("line_slam", device=cpu)
+        run_s = drive_scans(drv, world)
+        merged = drv.merge_landmarks()
+        chi2_l, final_s = host_s(drv.optimize)
+    finally:
+        ls.extract_lines = extract
+    lines = dict(s=run_s, merged=merged, chi2=float(chi2_l), final_s=final_s, stats=drv.stats(),
+                 poses=np.asarray(drv.poses, np.float64), extracted=kept)
+    return grid, lines
+
+
 def edge_errors(slam, gt):
     """A grid-SLAM driver's scan-to-submap and loop-closure edges held
     against the ground-truth relative poses: the matches' median
@@ -1770,8 +1851,10 @@ def phase_slice5(ctx, out_dir):
     """Phase 14: slice 5 (no kernel) at full size. (a) Grid SLAM over a
     simulated laser world at graphSE2.g2o's 452 scans (800x800 grids at
     0.05 m), every correlative match of the card recorded and rerun on the
-    CPU, the same scans through the port on the CPU, the JAX package's
-    ground-truth fixture (its ATE gate), 20 scans under torch.profiler; (b) line SLAM over the same scans, and on the CPU; (c)
+    CPU, the same scans through the port on the CPU (in the worker, since
+    phase 12), the JAX package's ground-truth fixture (its ATE gate), 20
+    scans under torch.profiler; (b) line SLAM over the same scans, and on
+    the CPU in the worker; (c)
     the plane graph, 1,000 poses and 60 planes (8,000 plane edges), its
     first LM iterations on the CPU; (d) BA, 200 poses and 20,000 points
     (160,000 observations), its first LM iterations on the CPU, and a
@@ -1819,14 +1902,12 @@ def phase_slice5(ctx, out_dir):
         f"{[(np.round(g, 4).tolist(), np.round(c, 4).tolist(), sc) for g, c, sc in far]} (card, CPU, score); "
         f"scores within {worst:.2e} of the CPU's")
     check(equal >= 0.99 * len(matches.calls), f"only {equal} of {len(matches.calls)} matches give the CPU's pose")
-    slam_cpu = models.build("grid_slam", device=cpu, **GRID_SLAM)
-    cpu_s = drive_scans(slam_cpu, world)
-    chi2_cpu = slam_cpu.optimize(iters=10, cg_iters=100)
-    est_cpu = np.asarray(slam_cpu.poses, np.float64)
-    ate_cpu = ate_xy(est_cpu[:, :2], gt[:, :2])["rmse"]
-    say("slice5", f"(a) the same scans on the CPU: {cpu_s:.2f} s, {slam_cpu.stats()}, chi2 {chi2_cpu:.4f}, ATE "
-        f"{ate_cpu:.4f} m; largest position difference to the card {np.abs(est - est_cpu)[:, :2].max():.3e} m")
-    check(slam_cpu.stats()["n_submaps"] == st["n_submaps"], "the card and the CPU made different submap counts")
+    grid_cpu, lines_cpu = ctx["slice5_cpu"].get() if "slice5_cpu" in ctx else cpu_slice5()
+    ate_cpu = ate_xy(grid_cpu["poses"][:, :2], gt[:, :2])["rmse"]
+    say("slice5", f"(a) the same scans on the CPU (the worker process, since phase 12): {grid_cpu['s']:.2f} s, "
+        f"{grid_cpu['stats']}, chi2 {grid_cpu['chi2']:.4f}, ATE {ate_cpu:.4f} m; largest position difference to the "
+        f"card {np.abs(est - grid_cpu['poses'])[:, :2].max():.3e} m")
+    check(grid_cpu["stats"]["n_submaps"] == st["n_submaps"], "the card and the CPU made different submap counts")
     fixture = simulate_laser_world(LaserWorldConfig(**GRID_FIXTURE))
     fix = models.build("grid_slam", device=device, **GRID_FIXTURE_SLAM)
     fix_s = drive_scans(fix, fixture)
@@ -1845,30 +1926,31 @@ def phase_slice5(ctx, out_dir):
     say("slice5", f"(a) scans 40-59 under torch.profiler: per scan wall {wall / 20:.3f} ms, device {dev / 20:.4f} ms "
         f"({100.0 * dev / wall:.1f}% busy), {ops / 20:.1f} device operations, {syncs / 20:.2f} host syncs")
 
-    # (b) line SLAM over the same scans
-    line_runs, chi2_l, extracted = {}, {}, {}
-    for dev_ in (device, cpu):
-        drv = models.build("line_slam", device=dev_)
-        with Recorder(ls, "extract_lines", keep=True) as ext, Recorder(ls, "optimize_line_graph") as solves:
-            run_s = drive_scans(drv, world)
-            merged = drv.merge_landmarks()
-            chi2_l[dev_.type], final_s = host_s(drv.optimize)
-        extracted[dev_.type] = [out for _, _, out in ext.calls]
-        est_l = np.asarray(drv.poses, np.float64)
-        line_runs[dev_.type] = (drv.stats(), ate_xy(est_l[:, :2], gt[:, :2])["rmse"])
-        times = (f"extract_lines median {np.median(ext.ms()):.3f} ms, {len(solves.events)} solves, median "
-                 f"{np.median(solves.ms()) / 1000.0:.3f} s a solve (CUDA events)" if dev_.type == "cuda" else "")
-        say("slice5", f"(b) line SLAM on {dev_.type}: {run_s:.2f} s for {n} scans ({n / run_s:.2f} scans/s; a solve "
-            f"every {drv.cfg.optimize_each_n}); {times}; merge_landmarks merged {merged}, final optimize "
-            f"{final_s:.3f} s, chi2 {chi2_l[dev_.type]:.4f}; {drv.stats()}; ATE rmse {line_runs[dev_.type][1]:.4f} m "
-            f"(odometry {ate_odo:.4f} m)")
-    same = [bool(torch.equal(a.mask.cpu(), b.mask) and torch.equal(a.n_points.cpu(), b.n_points))
-            for a, b in zip(extracted[device.type], extracted["cpu"])]
-    geo = max(float((getattr(a, f).cpu() - getattr(b, f)).abs().max()) for a, b, eq in
-              zip(extracted[device.type], extracted["cpu"], same) if eq for f in ("p0", "p1", "normal", "rho"))
+    # (b) line SLAM over the same scans, on the card here and on the CPU in the worker
+    drv = models.build("line_slam", device=device)
+    with Recorder(ls, "extract_lines", keep=True) as ext, Recorder(ls, "optimize_line_graph") as solves:
+        run_s = drive_scans(drv, world)
+        merged = drv.merge_landmarks()
+        chi2_l, final_s = host_s(drv.optimize)
+    extracted = [out for _, _, out in ext.calls]
+    ate_l = ate_xy(np.asarray(drv.poses, np.float64)[:, :2], gt[:, :2])["rmse"]
+    say("slice5", f"(b) line SLAM on cuda: {run_s:.2f} s for {n} scans ({n / run_s:.2f} scans/s; a solve every "
+        f"{drv.cfg.optimize_each_n}); extract_lines median {np.median(ext.ms()):.3f} ms, {len(solves.events)} solves, "
+        f"median {np.median(solves.ms()) / 1000.0:.3f} s a solve (CUDA events); merge_landmarks merged {merged}, "
+        f"final optimize {final_s:.3f} s, chi2 {chi2_l:.4f}; {drv.stats()}; ATE rmse {ate_l:.4f} m (odometry "
+        f"{ate_odo:.4f} m)")
+    lc = lines_cpu
+    say("slice5", f"(b) line SLAM on cpu (the worker process): {lc['s']:.2f} s for {n} scans ({n / lc['s']:.2f} "
+        f"scans/s); merge_landmarks merged {lc['merged']}, final optimize {lc['final_s']:.3f} s, chi2 "
+        f"{lc['chi2']:.4f}; {lc['stats']}; ATE rmse {ate_xy(lc['poses'][:, :2], gt[:, :2])['rmse']:.4f} m")
+    same = [bool(np.array_equal(a.mask.cpu().numpy(), b["mask"]) and np.array_equal(a.n_points.cpu().numpy(),
+                                                                                     b["n_points"]))
+            for a, b in zip(extracted, lc["extracted"])]
+    geo = max(float(np.abs(getattr(a, f).cpu().numpy() - b[f]).max()) for a, b, eq in
+              zip(extracted, lc["extracted"], same) if eq for f in ("p0", "p1", "normal", "rho"))
     say("slice5", f"(b) extract_lines on the card against the CPU, the same {len(same)} scans: {sum(same)} with the "
         f"same lines (mask and point counts), endpoints, normals and rho within {geo:.2e} there")
-    check(np.isfinite(chi2_l[device.type]) and line_runs[device.type][0]["n_lines"] > 0, "line SLAM failed")
+    check(np.isfinite(chi2_l) and drv.stats()["n_lines"] > 0, "line SLAM failed")
 
     # (c) the plane graph
     planes = random_planes(PLANE_BIG["n_planes"], PLANE_BIG["seed"] + 1)
@@ -2106,7 +2188,7 @@ def phase_parallel(ctx, out_dir):
 
     # (c) SE3 SPIKE on bench.py's 300-pose world
     g3, ctl3 = ctx["se3"][300]
-    g3c = type(g3)(*(getattr(g3, f.name).cpu() for f in dataclasses.fields(g3)))
+    g3c = g3.to("cpu")
     (_, tr), line = solve_line(f"(c) optimize_se3_partitioned D={MESH_D} {SE3_SPIKE_CAPS}",
                                lambda: optimize_se3_partitioned(g3, card, **SE3_SPIKE_CAPS),
                                lambda: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1}),
@@ -2124,7 +2206,7 @@ def phase_parallel(ctx, out_dir):
     poses7, points_init, obs = ctx["ba_big"]
     ba, ba_c = (tba.make_ba_problem(poses7, points_init, obs, device=dv) for dv in (device, cpu))
     g2k, _ = ctx["se3"][2000]
-    g2k_c = type(g2k)(*(getattr(g2k, f.name).cpu() for f in dataclasses.fields(g2k)))
+    g2k_c = g2k.to("cpu")
     sharded = {
         "se2": (optimize_se2_sharded, g, gc, SE2_SHARD_CAPS, lambda: pg.optimize_se2(g, **SE2_SHARD_CAPS)[1].chi2),
         "se3": (optimize_se3_sharded, g2k, g2k_c, SE3_SHARD_CAPS,
@@ -2197,6 +2279,137 @@ def phase_parallel(ctx, out_dir):
     say("parallel", f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
 
+# The JAX package's stress run (scripts/evaluate.py::eval_pwn_slam_long,
+# fast=False) on a CPU under JAX_PLATFORMS=cpu: 500 frames, 53 keyframes, 9
+# retired, 83 closures of 244 candidates, 218 evictions, no fallback, online
+# ATE 0.3029 m, optimised-keyframe ATE 0.3122 m (PERF.md section 6)
+JAX_STRESS = dict(keyframes=53, closures_committed=83, cache_evictions=218, fallbacks=0, ate_rmse_m=0.30293319746651975,
+                  kf_ate_rmse_m=0.31222691525050744)
+# the whole flagship step on the card against the CPU: the converters'
+# integral images differ (torch.cumsum accumulates float32 in float32 on the
+# card, in float64 on the CPU), and the pair's surface, constant down each
+# column, barely constrains one axis; a CPU rehearsal with a float32 scan
+# moved T by 2.4e-4 m and 3.9e-4 rad, inliers 0.7%, omega 1.5%
+ENTRY_STEP_TOL = dict(t_m=1e-3, r_rad=1e-3, inliers=0.02, omega_rtol=5e-2)
+# the card's align against the CPU's on the card's own clouds
+ENTRY_ALIGN_TOL = dict(t_m=1e-4, r_rad=1e-4, inliers=0.005, omega_rtol=1e-3)
+
+
+def rot_err(A, B):
+    """Angle (rad) between the rotations of two 4x4 poses, from the skew
+    part of A^T B (arccos of the trace loses ~3e-4 rad to float32)."""
+    import numpy as np
+
+    d = np.asarray(A, np.float64)[:3, :3].T @ np.asarray(B, np.float64)[:3, :3]
+    return float(np.linalg.norm([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]]) / 2)
+
+
+def entry_close(name, card, cpu, tol):
+    """Check (T, omega, inliers) of the card against the CPU's within `tol`."""
+    (T, omega, inl), (Tc, omegac, inlc) = ([x.cpu().double().numpy() for x in r] for r in (card, cpu))
+    dt, dr = float(abs(T[:3, 3] - Tc[:3, 3]).max()), rot_err(T, Tc)
+    di = abs(float(inl) - float(inlc)) / float(inlc)
+    do = float(abs(omega - omegac).max() / abs(omegac).max())
+    say("entry", f"(a) {name}: T {dt:.3e} m, {dr:.3e} rad; inliers {int(inl)} vs {int(inlc)} ({di:.2e}); omega "
+        f"{do:.2e} of its largest entry (limits {tol['t_m']} m, {tol['r_rad']} rad, {tol['inliers']}, {tol['omega_rtol']})")
+    check(dt <= tol["t_m"] and dr <= tol["r_rad"] and di <= tol["inliers"] and do <= tol["omega_rtol"],
+          f"{name}: the card and the CPU differ beyond the limits")
+
+
+def phase_entry_points(ctx, out_dir):
+    """Phase 16: the system's own entry points. (a) entry() on the card
+    against the CPU (the whole step, and the align on the card's clouds),
+    dryrun_multichip(8); (b) the bench's JSON line and a CPU run of the
+    aligner bench for vs_baseline; (c) the four dataset-free EVAL sections
+    at full size, the stress run without and with the cloud cache. Returns
+    the (kernel-1, kernel-2) launches of each path: entry(), the bench and
+    the no-cache stress run."""
+    import numpy as np
+    import torch
+
+    from g2o_frontend_tpu_torch import entry
+    from g2o_frontend_tpu_torch.apps import bench, evaluate
+    from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn.aligner import align
+    from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
+
+    t16 = time.perf_counter()
+    # (a) the flagship step
+    fn, args = entry.entry()
+    fa.launches = 0
+    card, ms = timed(lambda: fn(*args))
+    launches = fa.launches
+    proj, ccfg, acfg = entry.flagship_configs()
+    per_align = acfg.outer_iterations * acfg.inner_iterations + 1
+    say("entry", f"(a) entry() on the card: {ms:.3f} ms (CUDA events, the first call); T translation "
+        f"{card[0][:3, 3].cpu().numpy().round(6).tolist()}, inliers {int(card[2])}; kernel-1 launches {launches}")
+    check(launches == per_align, f"entry() launched kernel 1 {launches} times, not {per_align}")
+    entry_close("the whole step against the CPU", card, fn(*(a.cpu() for a in args)), ENTRY_STEP_TOL)
+    ref, cur = (depth_to_cloud(d, proj, ccfg) for d in args)
+    res = align(ref, cur, proj, config=acfg)
+    res_cpu = align(cpu_copy(ref), cpu_copy(cur), proj, config=acfg)
+    entry_close("align on the card's clouds against the CPU", (res.T, res.omega, res.inliers),
+                (res_cpu.T, res_cpu.omega, res_cpu.inliers), ENTRY_ALIGN_TOL)
+    dry, dry_s = host_s(lambda: entry.dryrun_multichip(MESH_D))
+    say("entry", f"(a) dryrun_multichip({MESH_D}) on the card: {dry_s:.2f} s; distributed Schur "
+        f"{dry['schur_stats']['lm_iters']} LM / {dry['schur_stats']['cg_total']} CG, SE3 SPIKE "
+        f"{float(dry['se3_spike'][-1]):.4f} against the control {dry['se3_control']:.4f}")
+
+    # (b) the bench, then the CPU's aligner rate for vs_baseline
+    fa.launches, fa.batch_launches = 0, 0
+    out, bench_s = host_s(lambda: bench.run(["--no-cpu-control"]))
+    bench_launches = (fa.launches, fa.batch_launches)
+    print(json.dumps(out), flush=True)
+    (cpu_bench, cpu_s) = host_s(lambda: bench.bench_pwn_aligner("cpu", reps=1))
+    say("bench", f"(b) {bench_s:.1f} s; kernel-1 launches {bench_launches[0]}, kernel-2 {bench_launches[1]}; SE3 "
+        f"world at D = 8 {out['se3_sim_chi2_distributed_8dev'] / out['se3_sim_chi2_control']:.6f}x the control; "
+        f"the CPU's aligner {cpu_bench['align_fps']:.4f} frames/s, convert {cpu_bench['convert_fps']:.4f} frames/s "
+        f"({cpu_s:.1f} s, {torch.get_num_threads()} threads): vs_baseline {out['value'] / cpu_bench['align_fps']:.3f}")
+    check(bench_launches[0] > 0, "the bench did not launch kernel 1")
+
+    # (c) the evaluation protocols at full size
+    def section(name, fn_):
+        t0 = time.perf_counter()
+        r = fn_()
+        wall = time.perf_counter() - t0
+        print(json.dumps({"section": name, **r, "section_wall_s": wall}), flush=True)
+        return r
+
+    g = section("grid_slam_gt", lambda: evaluate.grid_slam_gt(False))
+    say("eval", f"(c) grid_slam_gt, {g['frames']} scans: ATE {g['ate_slam_m']:.4f} m against the odometry's "
+        f"{g['ate_odom_m']:.4f} m ({g['ate_slam_m'] / g['ate_odom_m']:.3f}x, limit 0.75x)")
+    check(g["frames"] == 120 and g["ate_slam_m"] < 0.75 * g["ate_odom_m"], "grid_slam_gt missed its gate")
+    o = section("pwn_odometry_tum", lambda: evaluate.pwn_odometry_tum(False, out_dir))
+    with open(o["benchmark_file"]) as fh:
+        cols = {len(ln.split()) for ln in fh if ln.strip()}
+    say("eval", f"(c) pwn_odometry_tum, scale 2: ATE {o['ate']['rmse']:.4f} m (limit 0.5 m); {o['benchmark_rows']} "
+        f"benchmark rows of {sorted(cols)} columns")
+    check(cols == {14} and o["benchmark_rows"] == o["frames"] and o["ate"]["rmse"] < 0.5, "pwn_odometry_tum missed")
+    sl = section("pwn_slam", lambda: evaluate.pwn_slam(out_dir))
+    check(np.isfinite(sl["final_chi2"]), "pwn_slam's chi2 is not finite")
+    stress = {}
+    for cache in (False, True):
+        fa.launches, fa.batch_launches = 0, 0
+        stress[cache] = section(f"pwn_slam_long{'' if cache else ' (no cloud cache)'}",
+                                lambda: evaluate.pwn_slam_long(n_frames=500, cloud_cache=cache))
+        stress[cache]["launches"] = (fa.launches, fa.batch_launches)
+        say("eval", f"(c) stress run, cloud cache {cache}: {stress[cache]['frames'] / stress[cache]['wall_s']:.2f} "
+            f"frames/s; kernel-1 launches {fa.launches}, kernel-2 launches {fa.batch_launches}")
+    r, j = stress[False], JAX_STRESS
+    say("eval", f"(c) the no-cache stress run against the JAX CPU run: keyframes {r['keyframes']} vs {j['keyframes']} "
+        f"(limit +-15%), closures {r['closures_committed']} vs {j['closures_committed']} (limit >= 0.8x), fallbacks "
+        f"{r['fallbacks']}, evictions {r['cache_evictions']} vs {j['cache_evictions']}, keyframe ATE "
+        f"{r['kf_ate_rmse_m']:.4f} vs {j['kf_ate_rmse_m']:.4f} m (limit 1.25x and 0.5 m), online ATE "
+        f"{r['ate_rmse_m']:.4f} vs {j['ate_rmse_m']:.4f} m")
+    check(abs(r["keyframes"] - j["keyframes"]) <= 0.15 * j["keyframes"]
+          and r["closures_committed"] >= 0.8 * j["closures_committed"] and r["fallbacks"] == 0
+          and r["cache_evictions"] > 0 and r["kf_ate_rmse_m"] <= min(1.25 * j["kf_ate_rmse_m"], 0.5),
+          "the stress run missed its gates against the JAX run")
+    check(r["launches"][0] > 0 and r["launches"][1] > 0, "the stress run did not launch kernels 1 and 2")
+    say("entry", f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    return {"entry": (launches, 0), "bench": bench_launches, "stress_run": r["launches"]}
+
+
 def run(out_dir):
     import numpy as np
     import torch
@@ -2240,10 +2453,15 @@ def run(out_dir):
     phase_manifold(ctx)
     phase_cloud_io(ctx, out_dir)
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
-    phase_backend(ctx, out_dir)  # 12
-    phase_slam2d(ctx, out_dir)  # 13
-    phase_slice5(ctx, out_dir)  # 14
+    try:
+        phase_backend(ctx, out_dir)  # 12
+        phase_slam2d(ctx, out_dir)  # 13
+        phase_slice5(ctx, out_dir)  # 14
+    finally:  # the CPU worker of phases 12 and 14
+        if "cpu_pool" in ctx:
+            ctx.pop("cpu_pool").terminate()
     phase_parallel(ctx, out_dir)  # 15
+    paths16 = phase_entry_points(ctx, out_dir)  # 16
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (
@@ -2260,6 +2478,8 @@ def run(out_dir):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     kernels[1]["previous_ms"] = k2_previous_ms  # the previous batch design, in the same turns
+    for k, row in enumerate(kernels[:2]):  # phase 16's paths, each counted from 0
+        row["launches_phase16"] = {path: counts[k] for path, counts in paths16.items() if counts[k]}
     kernels += gather_entries
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")

@@ -99,6 +99,11 @@ class PoseGraph3D:
     def with_poses(self, poses) -> "PoseGraph3D":
         return replace(self, poses=poses)
 
+    def to(self, device) -> "PoseGraph3D":
+        """The graph with every tensor on `device` (the float64 host control
+        reads CPU tensors)."""
+        return PoseGraph3D(*(t.to(device) for t in vars(self).values()))
+
 
 # -- construction from parsed logs ------------------------------------------------
 

@@ -1,6 +1,7 @@
-"""Integral images (summed-area tables) for windowed point statistics,
-channel-planar (counterpart of the planar functions of
-``g2o_frontend_tpu/ops/integral_image.py``).
+"""Integral images (summed-area tables) for windowed point statistics
+(counterpart of ``g2o_frontend_tpu/ops/integral_image.py``): the
+channel-planar (C, H, W) functions the converter runs, and the interleaved
+(H, W, C) ones beside them.
 
 The table is two float32 cumulative sums (rows, then columns); a window sum
 reads four corners. Over a 480x640 image the float32 cumsum of p p^T loses
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .sym6 import sym_mat
+
 
 def integral_image_planar(x):
     """(C, H, W) -> (C, H+1, W+1) summed-area table (leading zero row/col)."""
@@ -22,12 +25,13 @@ def integral_image_planar(x):
 def window_sums(I, radii):
     """Per-pixel windowed sums with exact radii, by a four-corner gather.
 
-    I: (C, H+1, W+1) integral image; radii: (H, W) int per-pixel half-window.
+    I: (C, H+1, W+1) integral image; radii: (H, W) int per-pixel half-window,
+    or one int.
     Returns (C, H, W) sums over the clipped window [i-r, i+r] x [j-r, j+r].
     Planar twin of the JAX ``window_sums`` (used when ``n_radius_levels=0``).
     """
     H, W = I.shape[1] - 1, I.shape[2] - 1
-    r = radii.to(torch.int64)
+    r = torch.as_tensor(radii, device=I.device).to(torch.int64)
     rows = torch.arange(H, device=I.device)[:, None]
     cols = torch.arange(W, device=I.device)[None, :]
     r0 = torch.clamp(rows - r, 0, H)
@@ -115,3 +119,41 @@ def window_moments_planar(p, valid, radii, levels=None):
         ]
     )
     return n, mean, cov6
+
+
+# -- interleaved layout, (H, W, C) trailing channels --------------------------------
+
+
+def integral_image(x):
+    """(H, W, C) -> (H+1, W+1, C) summed-area table with a leading zero
+    row and column: ``I[i, j] = sum(x[:i, :j])``."""
+    s = torch.cumsum(torch.cumsum(x, 0), 1)
+    return F.pad(s, (0, 0, 1, 0, 1, 0))
+
+
+def window_sums_fixed(I, r: int):
+    """Clamped-window sums of an (H+1, W+1, C) table for one static radius:
+    four shifted slices of the edge-padded table."""
+    return window_sums_fixed_planar(I.movedim(-1, 0), r).movedim(0, -1)
+
+
+def window_sums_quantized(I, radii, levels):
+    """Interleaved twin of `window_sums_quantized_planar`."""
+    return window_sums_quantized_planar(I.movedim(-1, 0), torch.as_tensor(radii), levels).movedim(0, -1)
+
+
+def window_moments(points, valid, radii, levels=None):
+    """Interleaved twin of `window_moments_planar`.
+
+    Args:
+      points: (H, W, 3) unprojected 3D points.
+      valid: (H, W) bool.
+      radii: (H, W) int per-pixel half-window, or one int.
+      levels: static radius levels, or None for exact radii.
+
+    Returns:
+      (count (H, W), mean (H, W, 3), cov (H, W, 3, 3)) — the sample
+      covariance of the window's valid points.
+    """
+    n, mean, cov6 = window_moments_planar(points.movedim(-1, 0), valid, torch.as_tensor(radii), levels)
+    return n, mean.movedim(0, -1), sym_mat(cov6)

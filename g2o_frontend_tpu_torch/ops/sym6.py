@@ -15,6 +15,11 @@ import torch
 IDX = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
+def sym_pack(M):
+    """(..., 3, 3) symmetric -> (6, ...) channels."""
+    return torch.stack([M[..., i, j] for i, j in IDX])
+
+
 def sym_mat(o):
     """(6, ...) channels -> (..., 3, 3) full matrix."""
     xx, xy, xz, yy, yz, zz = (o[k] for k in range(6))

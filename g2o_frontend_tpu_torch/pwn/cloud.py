@@ -51,6 +51,22 @@ class Cloud(NamedTuple):
         return self.n.movedim(-3, -1)
 
     @property
+    def curvature(self):
+        """(..., H, W) curvature."""
+        return self.curv
+
+    @property
+    def eigenvalues(self):
+        """(..., H, W, 3) ascending eigenvalues."""
+        return self.ev.movedim(-3, -1)
+
+    @property
+    def eigenvectors(self):
+        """(..., H, W, 3, 3), columns the eigenvectors."""
+        V = self.evec.unflatten(-3, (3, 3))  # (..., k, i, H, W)
+        return V.movedim((-4, -3), (-1, -2))
+
+    @property
     def omega_p(self):
         """(H, W, 3, 3) point information matrices."""
         return sym6.sym_mat(self.op)
@@ -59,6 +75,14 @@ class Cloud(NamedTuple):
     def omega_n(self):
         """(H, W, 3, 3) normal information matrices."""
         return sym6.sym_mat(self.on)
+
+    @property
+    def shape(self):
+        """(H, W) of the image grid."""
+        return tuple(self.p.shape[-2:])
+
+    def n_valid(self):
+        return self.valid.sum()
 
     def transform(self, T) -> "Cloud":
         """Apply a 4x4 rigid transform to all geometric quantities."""

@@ -1,12 +1,14 @@
-"""Trajectory evaluation: absolute trajectory error (counterpart of ``ate``
-in ``g2o_frontend_tpu/utils/evaluation.py``).
+"""Trajectory evaluation: absolute and relative trajectory error
+(counterpart of ``g2o_frontend_tpu/utils/evaluation.py``).
 
-Stamps are associated as in the TUM benchmark; the estimate is aligned to
-the ground truth by the closed-form Horn/Umeyama rigid fit in float64 (the
-JAX package takes a float32 power-iteration Horn fit from its RANSAC
-solvers), then the position RMSE is reported. `ate_xy`, the planar ATE of
-the 2D SLAM configurations, aligns by the RANSAC solvers' float32 Horn2D
-fit, as the JAX package's does.
+Stamps are associated as in the TUM benchmark; for ATE the estimate is
+aligned to the ground truth by the closed-form Horn/Umeyama rigid fit in
+float64 (the JAX package takes a float32 power-iteration Horn fit from its
+RANSAC solvers), then the position RMSE is reported. `rpe` is the
+translational relative pose error over an index delta, in float64 numpy as
+the JAX package's. `ate_xy`, the planar ATE of the 2D SLAM configurations,
+aligns by the RANSAC solvers' float32 Horn2D fit, as the JAX package's
+does.
 """
 from __future__ import annotations
 
@@ -14,6 +16,25 @@ import numpy as np
 import torch
 
 from ..io.tum import associate
+
+
+def pose7_to_T(p):
+    """TUM pose ``[x y z qx qy qz qw]`` -> 4x4 float64 transform (the
+    quaternion normalised)."""
+    T = np.eye(4)
+    q = np.asarray(p[3:7], float)
+    w, x, y, z = q[3], q[0], q[1], q[2]
+    n = np.sqrt(w * w + x * x + y * y + z * z) + 1e-12
+    w, x, y, z = w / n, x / n, y / n, z / n
+    T[:3, :3] = np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+    T[:3, 3] = p[:3]
+    return T
 
 
 def fit_rigid(src, dst):
@@ -53,6 +74,27 @@ def ate(ts_est, poses_est7, ts_gt, poses_gt7, max_difference=0.02, align=True):
         "median": float(np.median(err)),
         "std": float(err.std()),
         "max": float(err.max()),
+        "pairs": len(pairs),
+    }
+
+
+def rpe(ts_est, poses_est7, ts_gt, poses_gt7, delta=1, max_difference=0.02):
+    """Relative pose error over index `delta` (translational part): rmse,
+    mean and the number of associated pairs."""
+    pairs = associate(ts_est, ts_gt, max_difference)
+    if len(pairs) <= delta:
+        return {"rmse": np.inf, "pairs": 0}
+    errs = []
+    for k in range(len(pairs) - delta):
+        ia0, ib0 = pairs[k]
+        ia1, ib1 = pairs[k + delta]
+        Te = np.linalg.inv(pose7_to_T(poses_est7[ia0])) @ pose7_to_T(poses_est7[ia1])
+        Tg = np.linalg.inv(pose7_to_T(poses_gt7[ib0])) @ pose7_to_T(poses_gt7[ib1])
+        errs.append(np.linalg.norm((np.linalg.inv(Tg) @ Te)[:3, 3]))
+    errs = np.asarray(errs)
+    return {
+        "rmse": float(np.sqrt(np.mean(errs**2))),
+        "mean": float(errs.mean()),
         "pairs": len(pairs),
     }
 

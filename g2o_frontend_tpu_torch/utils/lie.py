@@ -162,6 +162,10 @@ def se3_t2v(T):
     return torch.cat([T[..., :3, 3], mat2quat(T[..., :3, :3])], -1)
 
 
+def se3_compose(A, B):
+    return A @ B
+
+
 def se3_inverse(T):
     Rt = T[..., :3, :3].transpose(-1, -2)
     return _hom(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
@@ -255,3 +259,35 @@ def se3_log(T):
     )
     Vinv = _eye(3, T) - 0.5 * W + cot_term * (W @ W)
     return torch.cat([(Vinv @ T[..., :3, 3:4])[..., 0], w], -1)
+
+
+# -- quaternions, [w, x, y, z] on the last axis -----------------------------------
+
+
+def quat_mul(a, b):
+    """Hamilton product of (..., 4) [w, x, y, z] quaternions."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        -1,
+    )
+
+
+def quat_rotate(q, p):
+    """Rotate (..., 3) vectors p by the unit quaternion q = [w, x, y, z]."""
+    w, xyz = q[..., :1], q[..., 1:]
+    xyz = torch.broadcast_to(xyz, p.shape)
+    t = 2.0 * torch.linalg.cross(xyz, p)
+    return p + w * t + torch.linalg.cross(xyz, t)
+
+
+def quat_normalize(q):
+    """Unit quaternion(s) with w >= 0."""
+    q = q / torch.clamp_min(_norm(q, keepdim=True), 1e-12)
+    return torch.where(q[..., :1] < 0, -q, q)

@@ -61,24 +61,25 @@ def render_planes_depth(T_wc, projector: PinholeProjector, planes=None, device="
     return torch.as_tensor(depth.astype(np.float32), device=device)
 
 
-def bench_projector():
-    """The 640x480 Kinect camera of the bench pair."""
-    H, W = 480, 640
-    return PinholeProjector(rows=H, cols=W, fx=525.0, fy=525.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5,
-                            min_distance=0.1, max_distance=10.0)
+def bench_projector(H=480, W=640):
+    """The Kinect camera of the bench pair, 640x480 or scaled to H x W
+    (``bench.py:72-73``)."""
+    f = 525.0 * (W / 640.0)
+    return PinholeProjector(rows=H, cols=W, fx=f, fy=f, cx=W / 2 - 0.5, cy=H / 2 - 0.5, min_distance=0.1,
+                            max_distance=10.0)
 
 
-def bench_depth(T_wc, device="cuda"):
-    """The bench pair's three planes seen from camera pose T_wc at 640x480."""
-    return render_planes_depth(T_wc, bench_projector(), BENCH_PLANES, device=device)
+def bench_depth(T_wc, device="cuda", H=480, W=640):
+    """The bench pair's three planes seen from camera pose T_wc."""
+    return render_planes_depth(T_wc, bench_projector(H, W), BENCH_PLANES, device=device)
 
 
-def bench_pair(device="cuda"):
-    """The bench pair of ``bench.py:61-94``: (reference depth at the
-    identity, current depth at the known motion, projector, that motion as a
-    4x4 numpy pose)."""
+def bench_pair(device="cuda", H=480, W=640):
+    """The bench pair of ``bench.py:61-94`` (``_make_depth_pair``):
+    (reference depth at the identity, current depth at the known motion,
+    projector, that motion as a 4x4 numpy pose)."""
     T_gt = lie.se3_exp(torch.tensor(BENCH_XI, dtype=torch.float32)).numpy()
-    return bench_depth(np.eye(4), device), bench_depth(T_gt, device), bench_projector(), T_gt
+    return bench_depth(np.eye(4), device, H, W), bench_depth(T_gt, device, H, W), bench_projector(H, W), T_gt
 
 
 def candidate_poses(k, seed=CANDIDATE_SEED):

@@ -97,5 +97,9 @@ def test_entry_points_default_to_cuda():
                  "slam.line_slam.LineSlam2D", "solvers.line_slam.make_line_graph",
                  "solvers.line_slam.line_graph_from_log", "solvers.plane_slam.make_plane_graph",
                  "solvers.ba.make_ba_problem", "convert.line_graph_from_numpy", "convert.plane_graph_from_numpy",
-                 "convert.ba_problem_from_numpy", "convert.likelihood_map_from_numpy"):
+                 "convert.ba_problem_from_numpy", "convert.likelihood_map_from_numpy", "entry.entry",
+                 "entry.dryrun_multichip", "apps.bench --device", "apps.bench.bench_pwn_aligner",
+                 "apps.bench.bench_tracker", "apps.bench.bench_se3_sim_distributed", "apps.evaluate --device",
+                 "apps.evaluate.grid_slam_gt", "apps.evaluate.pwn_slam", "apps.evaluate.pwn_slam_long",
+                 "apps.evaluate.stress_run", "apps.evaluate.pwn_odometry_tum", "apps.scan_witness --device"):
         assert f"g2o_frontend_tpu_torch.{name}" in found, name
