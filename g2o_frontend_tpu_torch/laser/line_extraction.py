@@ -17,7 +17,8 @@ treats every segment at once:
      (`Line2DExtractor::merge`),
   4. emit a fixed-capacity line set (endpoints, normal/rho, #points, mask).
 
-The segment reductions are `scatter_reduce` / `index_add_` with the JAX
+The segment reductions are `scatter_reduce` (min and max, exact in any
+order) and `ops.segment_sum` (the moments, in a fixed order) with the JAX
 version's values for empty segments (-inf for a float max, the integer
 extremes for an integer min or max); the lines are ranked by point count
 with a stable descending sort, so equal counts keep scan order as
@@ -29,6 +30,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+
+from ..ops import segment_sum as ss
 
 
 @dataclass(frozen=True)
@@ -83,8 +86,6 @@ def _segment_reduce(values, seg, n_seg, reduce):
     return out.scatter_reduce(0, seg, values, reduce=reduce, include_self=True)
 
 
-def _segment_sum(values, seg, n_seg):
-    return values.new_zeros(n_seg).index_add_(0, seg, values)
 
 
 def _segment_endpoints(seg_id, pts, valid, n_seg):
@@ -115,12 +116,10 @@ def _tls_fit(seg_id, pts, valid, n_seg):
     """
     w = valid.to(pts.dtype)
     x, y = pts[:, 0], pts[:, 1]
-    cnt = _segment_sum(w, seg_id, n_seg)
-    sx = _segment_sum(w * x, seg_id, n_seg)
-    sy = _segment_sum(w * y, seg_id, n_seg)
-    sxx = _segment_sum(w * x * x, seg_id, n_seg)
-    sxy = _segment_sum(w * x * y, seg_id, n_seg)
-    syy = _segment_sum(w * y * y, seg_id, n_seg)
+    # the six moments in one segment sum over an index sorted once
+    moments = ss.segment_sum(torch.stack([w, w * x, w * y, w * x * x, w * x * y, w * y * y], 1),
+                             ss.SegmentIndex(seg_id, n_seg))
+    cnt, sx, sy, sxx, sxy, syy = moments.unbind(1)
     c = torch.clamp_min(cnt, 1.0)
     mx, my = sx / c, sy / c
     cxx = sxx / c - mx * mx

@@ -73,6 +73,8 @@ def _hit_images(points, valid, spec: GridSpec):
     n_img = math.prod(lead)
     slots = spec.rows * spec.cols + 1
     offsets = torch.arange(n_img, device=flat.device).reshape(lead + (1,)) * slots
+    # hit counts: sums of 1.0 are exact in float32 below 2^24 in any order,
+    # so the card's atomic adds give the same image every run
     img = points.new_zeros(n_img * slots).index_add_(0, (flat + offsets).reshape(-1),
                                                        inside.to(points.dtype).reshape(-1))
     img = img.reshape(n_img, slots)[:, :-1].reshape(lead + (spec.rows, spec.cols))
@@ -200,6 +202,7 @@ def fine_scores(likelihood_map, scan_points, scan_valid, spec: GridSpec, thetas,
     K = ui.shape[0]
     slots = H * W + 1
     offsets = torch.arange(K, device=ui.device)[:, None] * slots
+    # hit counts, exact in any order (sums of 1.0 below 2^24)
     hits = likelihood_map.new_zeros(K * slots).index_add_(0, (flat + offsets).reshape(-1),
                                                           ins.to(likelihood_map.dtype).reshape(-1))
     hits = hits.reshape(K, slots).gather(1, flat)

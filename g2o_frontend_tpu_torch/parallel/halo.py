@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import segment_sum as ss
 
 class HaloSpec(NamedTuple):
     """Static exchange schedule. Arrays lead with the device axis D so they
@@ -182,21 +183,30 @@ def halo_gather(v_blk, send_idx, recv_pos, spec: HaloSpec, mesh):
     return out.view((S, G + 1) + tail)[:, :G]
 
 
+def _add_rows(flat, idx, rows):
+    """`flat` with `rows` added at the slots `idx` (``index_add``), as one
+    deterministic segment sum: each slot adds its own value, then its
+    rows in their order."""
+    n = flat.shape[0]
+    seg = ss.SegmentIndex(torch.cat([torch.arange(n, device=flat.device), idx.reshape(-1)]), n)
+    return ss.segment_sum(torch.cat([flat, rows]), seg)
+
+
 def halo_reduce(own, ghost_contrib, send_idx, recv_pos, spec: HaloSpec, mesh):
     """Reverse exchange: (S, G, ...) ghost contributions -> scatter-added
     into their owners' (S, B, ...) blocks. Returns the updated own blocks
     (`own` itself is not modified). Ghosts of one owner read by several
-    shards all add into it (``index_add``)."""
+    shards all add into it (`_add_rows`)."""
     S, B, tail = own.shape[0], own.shape[1], own.shape[2:]
     ext = torch.cat([ghost_contrib, ghost_contrib.new_zeros((S, 1) + tail)], 1)
     flat = own.reshape((S * B,) + tail)
     if spec.mode == "a2a":
         if spec.n_dev > 1:
             rec = mesh.all_to_all(_rows(ext, recv_pos, mesh))  # padded slots pick the zero row
-            flat = flat.index_add(0, mesh.flat_index(send_idx, B), rec.reshape((-1,) + tail))
+            flat = _add_rows(flat, mesh.flat_index(send_idx, B), rec.reshape((-1,) + tail))
         return flat.view(own.shape)
     for i, k in enumerate(spec.shifts):
         n = spec.sizes[i]
         rec = mesh.ppermute(_rows(ext, recv_pos[:, i, :n], mesh), -k)
-        flat = flat.index_add(0, mesh.flat_index(send_idx[:, i, :n], B), rec.reshape((-1,) + tail))
+        flat = _add_rows(flat, mesh.flat_index(send_idx[:, i, :n], B), rec.reshape((-1,) + tail))
     return flat.view(own.shape)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..graph.store import PoseGraph2D, PoseGraph3D
+from ..ops import segment_sum as ss
 from ..solvers import pose_graph as pg
 from ..solvers.pcg import pcg
 from ..solvers.tridiag import cr_factor, cr_solve
@@ -363,6 +364,7 @@ class _Shards:
         self.G = part.ghost_ids.shape[1]
         self.halo = _Halo(part.halo, self.B, mesh)
         self.pp_ij, self.pp_chain, self.pp_bnd = loc(part.pp_ij, torch.int64), loc(part.pp_chain), loc(part.pp_bnd)
+        self._chain_seg = None
         if free_next:
             # the free mask of the NEXT shard's first pose (gauges the
             # boundary coupling); the fixed set does not change mid-solve
@@ -382,18 +384,24 @@ class _Shards:
             c = c + shard_chi2(lin.e_pl, lin.w_pl, self.S)
         return self.mesh.psum(c)[0]
 
-    def segment_sum(self, values, idx, n):
-        """(S * E, ...) per-edge values into each shard's n slots by local
-        (S, E) indices -> (S, n, ...)."""
-        return pg._segment_sum(values, self.mesh.flat_index(idx, n), self.S * n).view((self.S, n) + values.shape[1:])
+    def segments(self, idx, n):
+        """The `SegmentIndex` of local (S, E) indices into each shard's n
+        slots, flattened: built once a solve for `segment_sum`."""
+        return ss.SegmentIndex(self.mesh.flat_index(idx, n), self.S * n)
+
+    def segment_sum(self, values, seg):
+        """(S * E, ...) per-edge values into each shard's slots by their
+        `segments` -> (S, n, ...)."""
+        return ss.segment_sum(values, seg).view((self.S, seg.n // self.S) + values.shape[1:])
 
     def chain_blocks(self, lin):
         """(L, U), (S, B, d, d): each shard's block-internal odometry-chain
         tridiagonal, zero where either end is fixed."""
         S, B, d = self.S, self.B, lin.Ji_pp.shape[-1]
         chain = self.pp_chain.reshape(-1)
-        ci = torch.where(self.pp_chain, self.pp_ij[..., 0], B - 1)
-        U = self.segment_sum(pg._jtwj(lin.Ji_pp, lin.w_pp * chain[:, None, None], lin.Jj_pp), ci, B)
+        if self._chain_seg is None:  # the chain slots do not change mid-solve
+            self._chain_seg = self.segments(torch.where(self.pp_chain, self.pp_ij[..., 0], B - 1), B)
+        U = self.segment_sum(pg._jtwj(lin.Ji_pp, lin.w_pp * chain[:, None, None], lin.Jj_pp), self._chain_seg)
         fnext = torch.cat([self.free_p[:, 1:], self.free_p.new_zeros((S, 1))], 1)
         U = U * (self.free_p * fnext)[..., None, None]
         return torch.cat([U.new_zeros((S, 1, d, d)), U.transpose(-1, -2)[:, :-1]], 1), U
@@ -494,6 +502,7 @@ def optimize_se2_partitioned(
     def chi2_of(pb, lb):
         return sh.chi2(pg.linearize_se2(sh.graph(pb, lb)))
 
+    seg = pg.edge_segments(sh.graph0)
     pb, lb = sh.poses0, sh.lms0
     trace = [chi2_of(pb, lb)]
     lam = torch.tensor(lm_lambda0, dtype=pb.dtype, device=pb.device)
@@ -502,9 +511,9 @@ def optimize_se2_partitioned(
         gk = sh.graph(pb, lb)
         lin = pg.linearize_se2(gk)
         chi2 = sh.chi2(lin)
-        gp, gl = sh.reduce(*pg._grad_se2(gk, lin))
-        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin))
-        edge_hvp = pg._hvp_edges_se2(gk, lin)
+        gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
+        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
 
         def hvp(v, edge_hvp=edge_hvp, Dp=Dp, Dl=Dl, lam=lam):
             vp, vl = v[0] * free_p, v[1] * free_l
@@ -665,6 +674,7 @@ def optimize_se3_partitioned(
                          torch.zeros(S * P, dtype=torch.bool, device=dev))
     I, J = sh.pp_ij[..., 0], sh.pp_ij[..., 1]
     I_flat, J_flat = graph0.pp_ij[:, 0], graph0.pp_ij[:, 1]
+    I_seg, J_seg = sh.segments(I, P), sh.segments(J, P)
     free_p = sh.free_p[..., None]
 
     def linearize(pb):
@@ -672,7 +682,7 @@ def optimize_se3_partitioned(
 
     def reduce(a, b):
         """Per-edge terms at both endpoints -> own (S, B, ...) blocks."""
-        return sh.halo.reduce(sh.segment_sum(a, I, P) + sh.segment_sum(b, J, P))
+        return sh.halo.reduce(sh.segment_sum(a, I_seg) + sh.segment_sum(b, J_seg))
 
     pb = sh.poses0
     trace = [sh.chi2(linearize(pb))]

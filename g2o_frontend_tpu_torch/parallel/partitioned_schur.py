@@ -81,16 +81,20 @@ def optimize_se2_schur_partitioned(
     gid_k = torch.gather(sh.lm_gid, 1, lm_k)  # global landmark column ids
     # the same as rows of the flattened (S * B) and (S * (BL + GL)) blocks
     pose_k_flat, lm_k_flat = mesh.flat_index(pose_k, B), mesh.flat_index(lm_k, BL + GL)
+    # every sum's index sorted once a solve
+    seg = pg.edge_segments(sh.graph0)
+    pose_seg, lm_seg = sh.segments(pose_k, B), sh.segments(lm_k, BL + GL)
+    arrow_seg, owner_seg = sh.segments(pose_k * NL + gid_k, B * NL), sh.segments(sh.lm_gid[:, :BL], NL)
 
     def chi2_of(pb, lb):
         return sh.chi2(pg.linearize_se2(sh.graph(pb, lb), huber_delta))
 
     def build_system(gk, lin, lam):
         """The distributed `schur_pcg.build_schur_system`."""
-        gp, gl = sh.reduce(*pg._grad_se2(gk, lin))
-        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin))
+        gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
+        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
         bp = -gp * free_p
-        edge_hvp = pg._hvp_edges_se2(gk, lin)
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
         diagDp = torch.diagonal(Dp, dim1=-2, dim2=-1)
         zeros_l = gk.landmarks.new_zeros(gk.landmarks.shape)
         if has_pl:
@@ -98,11 +102,11 @@ def optimize_se2_schur_partitioned(
             Hll_inv = pg._inv(_damped_or_eye(Dl, lam, sh.free_l, 2))
             ybl = _bmv(Hll_inv, -gl * free_l)
             ybl_aug = sh.halo_l.gather_aug(ybl).flatten(0, 1)
-            bs = bp - free_p * sh.segment_sum(torch.einsum("kij,kj->ki", C, ybl_aug[lm_k_flat]), pose_k, B)
+            bs = bp - free_p * sh.segment_sum(torch.einsum("kij,kj->ki", C, ybl_aug[lm_k_flat]), pose_seg)
 
         def to_landmarks(vp):
             """Own landmark blocks of sum_k C_k^T vp[pose_k]."""
-            t = sh.segment_sum(torch.einsum("kji,kj->ki", C, vp.flatten(0, 1)[pose_k_flat]), lm_k, BL + GL)
+            t = sh.segment_sum(torch.einsum("kji,kj->ki", C, vp.flatten(0, 1)[pose_k_flat]), lm_seg)
             return sh.halo_l.reduce(t)
 
         def smv(v):
@@ -111,7 +115,7 @@ def optimize_se2_schur_partitioned(
             hp = sh.halo.reduce(hp_aug.view(S, -1, 3)) + lam * diagDp * vp
             if has_pl:
                 y_aug = sh.halo_l.gather_aug(_bmv(Hll_inv, to_landmarks(vp))).flatten(0, 1)
-                hp = hp - sh.segment_sum(torch.einsum("kij,kj->ki", C, y_aug[lm_k_flat]), pose_k, B)
+                hp = hp - sh.segment_sum(torch.einsum("kij,kj->ki", C, y_aug[lm_k_flat]), pose_seg)
             return (hp * free_p + (1.0 - free_p) * v[0],)
 
         # the distributed chain + Woodbury-arrow preconditioner
@@ -119,13 +123,13 @@ def optimize_se2_schur_partitioned(
         sf = spike_factor(L_pre, _damped_or_eye(Dp, lam, sh.free_p, 3), U_pre, sh.boundary_block(lin), mesh)
         if has_pl:
             # dense V rows of OWN poses: (S, B, 3, 2 NL), global landmark columns
-            Vd = sh.segment_sum(C.reshape(-1, 6), pose_k * NL + gid_k, B * NL).view(S, B, NL, 3, 2)
+            Vd = sh.segment_sum(C.reshape(-1, 6), arrow_seg).view(S, B, NL, 3, 2)
             Vd = Vd.permute(0, 1, 3, 2, 4).reshape(S, B, 3, 2 * NL) * free_p[..., None]
             X = spike_solve(sf, Vd, mesh)  # distributed T^-1 V
             # the global arrow's diagonal: the owners' damped blocks on free
             # rows, psum'd, and identity on invalid rows (added replicated)
             contrib = torch.where(free_l[..., None] > 0, _damped_or_eye(Dl, lam, sh.free_l, 2), 0.0)
-            A_diag = mesh.psum(sh.segment_sum(contrib.flatten(0, 1), sh.lm_gid[:, :BL], NL))[0]
+            A_diag = mesh.psum(sh.segment_sum(contrib.flatten(0, 1), owner_seg))[0]
             A_diag = A_diag + (1.0 - lm_free)[:, None, None] * torch.eye(2, dtype=dtype, device=dev)
             ar = torch.arange(NL, device=dev)
             A = A_diag.new_zeros((NL, 2, NL, 2))

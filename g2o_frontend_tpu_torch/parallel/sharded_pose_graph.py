@@ -57,15 +57,16 @@ def optimize_se2_sharded(g: PoseGraph2D, mesh, iters: int = 10, cg_iters: int = 
             chi2 = chi2 + shard_chi2(lin.e_pl, lin.w_pl, S)
         return gk, lin, mesh.psum(chi2)[0]
 
+    seg = pg.edge_segments(flat)  # the edge ends sorted once, for every sum of the solve
     poses, lms = g.poses.to(dev), g.landmarks.to(dev)
     trace = [linearize(poses, lms)[2]]
     lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
     for _ in range(iters):
         gk, lin, chi2 = linearize(poses, lms)
-        gp, gl = pg._grad_se2(gk, lin)
-        Dp, Dl = pg._diag_blocks_se2(gk, lin)
+        gp, gl = pg._grad_se2(gk, lin, seg)
+        Dp, Dl = pg._diag_blocks_se2(gk, lin, seg)
         gp, gl, Dp, Dl = psum_rows(gp, NP), psum_rows(gl, NL), psum_rows(Dp, NP), psum_rows(Dl, NL)
-        edge_hvp = pg._hvp_edges_se2(gk, lin)
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
 
         def sharded_edge_hvp(v, edge_hvp=edge_hvp):
             hp, hl = edge_hvp((tile(v[0], S), tile(v[1], S)))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.store import PoseGraph3D
+from ..ops import segment_sum as ss
 from ..solvers import pose_graph as pg
 from ..solvers.pcg import pcg
 from ..utils import lie
@@ -22,6 +23,7 @@ def optimize_se3_sharded(g: PoseGraph3D, mesh, iters: int = 10, cg_iters: int = 
     flat = PoseGraph3D(tile(g.poses.to(dev), S), tile(g.pose_mask.to(dev), S), offset_pairs(ij, NP, NP, mesh=mesh),
                        meas.flatten(0, 1), info.flatten(0, 1), mask.flatten(0, 1), tile(g.fixed.to(dev), S))
     I, J = flat.pp_ij[:, 0], flat.pp_ij[:, 1]
+    I_seg, J_seg = ss.SegmentIndex(I, S * NP), ss.SegmentIndex(J, S * NP)
     free_p = (g.pose_mask & ~g.fixed).to(device=dev, dtype=dtype)
 
     def psum_rows(x):
@@ -29,7 +31,7 @@ def optimize_se3_sharded(g: PoseGraph3D, mesh, iters: int = 10, cg_iters: int = 
 
     def scatter(a, b):
         """Each shard's sum of per-edge terms at both endpoints, psum'd."""
-        return psum_rows(pg._segment_sum(a, I, S * NP) + pg._segment_sum(b, J, S * NP))
+        return psum_rows(ss.segment_sum(a, I_seg) + ss.segment_sum(b, J_seg))
 
     def linearize(poses):
         lin = pg.linearize_se3(flat.with_poses(tile(poses, S)))

@@ -15,9 +15,9 @@ fixed-capacity masked point list and the collapse is scatter arithmetic:
 
 `add_cloud` writes a registered cloud's valid points into the model's free
 slots on the model's device, with no host round trip. The z-buffer winners
-(``amin`` / ``amax``) and the masks are deterministic; the fused positions
-and weights are CUDA atomic sums, whose order (and so last bits) changes
-from run to run.
+(``amin`` / ``amax``) and the masks are deterministic, and so are the fused
+positions and weights: one segment sum (`ops.segment_sum`) adds each
+winner's losers in their slot order.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import segment_sum as ss
 from .cloud import Cloud
 from .projector import PinholeProjector
 
@@ -97,9 +98,8 @@ def collapse(model: MergedModel, projector: PinholeProjector, transform=None,
     # fuse: scatter the weighted positions of collapsing points onto winners
     w_src = torch.where(collapses, model.weights, 0.0)
     tgt = torch.where(collapses, winner, C)  # overflow slot
-    add_w = torch.zeros(C + 1, dtype=pts.dtype, device=pts.device).index_add_(0, tgt, w_src)[:C]
-    add_p = torch.zeros((C + 1, 3), dtype=pts.dtype, device=pts.device).index_add_(
-        0, tgt, w_src[:, None] * model.points)[:C]
+    adds = ss.segment_sum(torch.cat([w_src[:, None], w_src[:, None] * model.points], 1), ss.SegmentIndex(tgt, C))
+    add_w, add_p = adds[:, 0], adds[:, 1:]
     new_w = model.weights + add_w
     new_p = torch.where(
         (add_w > 0)[:, None],

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from ..ops import segment_sum as ss
 from ..ops.eigh3x3 import smallest_eigenvector3x3
 from .cloud import Cloud
 
@@ -80,11 +81,14 @@ def extract_planes(cloud: Cloud, config: PlaneExtractorConfig = PlaneExtractorCo
     idd = (div(d, cfg.max_distance) * D).to(torch.int32).clamp(0, D - 1)
     B = A * E * D
     bin_idx = torch.where(has_n, (ia * E + ie) * D + idd, B).long()
+    # a count: sums of 1.0 are exact in float32 below 2^24 in any order, so
+    # the card's atomic adds give the same histogram every run
     hist = torch.zeros(B + 1, device=dev).index_add_(0, bin_idx, torch.ones_like(d))[:-1]
     # per-bin vote means give the hypotheses' parameters (bin centers are
-    # too coarse for the refinement gates)
-    sum_n = torch.zeros((B + 1, 3), device=dev).index_add_(0, bin_idx, torch.where(has_n[:, None], n, 0.0))[:-1]
-    sum_d = torch.zeros(B + 1, device=dev).index_add_(0, bin_idx, torch.where(has_n, d, 0.0))[:-1]
+    # too coarse for the refinement gates), summed in a fixed order
+    sums = ss.segment_sum(torch.cat([torch.where(has_n[:, None], n, 0.0), torch.where(has_n, d, 0.0)[:, None]], 1),
+                          ss.SegmentIndex(bin_idx, B))
+    sum_n, sum_d = sums[:, :3], sums[:, 3]
 
     # the K largest bins; each pick zeroes its normal cell +-1 distance bin
     h = hist.clone()

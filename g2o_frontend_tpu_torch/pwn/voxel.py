@@ -4,14 +4,16 @@
 Re-design of ``pwn_core/voxelcalculator.{h,cpp}`` (``voxelcalculator.h:
 12-60``): points are hashed into a regular voxel grid and each occupied
 voxel keeps the centroid of its points. The reference accumulates in an
-std::map; here it is one scatter-add over hashed voxel keys into a
-fixed-capacity table. The hash is the JAX package's, in int32 with
+std::map; here it is one segment sum (`ops.segment_sum`, in point order)
+over hashed voxel keys into a fixed-capacity table. The hash is the JAX package's, in int32 with
 wrap-around: an int32 tensor times a Python int stays int32 in torch, so the
 table is the same bit for bit.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops import segment_sum as ss
 
 
 def voxelize(points, valid, resolution: float = 0.1, table_size: int = 1 << 16):
@@ -32,9 +34,8 @@ def voxelize(points, valid, resolution: float = 0.1, table_size: int = 1 << 16):
     h = (key[:, 0] * 73856093 ^ key[:, 1] * 19349663 ^ key[:, 2] * 83492791) & (table_size - 1)
     h = torch.where(valid, h.long(), table_size)
     w = valid.to(points.dtype)
-    cnt = torch.zeros(table_size + 1, dtype=points.dtype, device=points.device).index_add_(0, h, w)[:table_size]
-    acc = torch.zeros((table_size + 1, 3), dtype=points.dtype, device=points.device).index_add_(
-        0, h, points * w[:, None])[:table_size]
+    sums = ss.segment_sum(torch.cat([w[:, None], points * w[:, None]], 1), ss.SegmentIndex(h, table_size))
+    cnt, acc = sums[:, 0], sums[:, 1:]
     return acc / torch.clamp_min(cnt, 1.0)[:, None], cnt, cnt > 0
 
 

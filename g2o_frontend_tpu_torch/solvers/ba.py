@@ -13,7 +13,8 @@ materializing a sparse matrix:
 - the LM normal system partitioned [camera | point]: the point block H_pp
   is 3x3-block-diagonal and inverted in closed form (`inv_ex`); the Schur
   complement ``S = H_cc - H_cp H_pp^-1 H_pc`` acts matrix-free inside PCG,
-  each S @ v four `index_add_` passes over the observations;
+  each S @ v four segment sums over the observations (`ops.segment_sum`,
+  the camera and point indices sorted once a solve);
 - landmark update by back-substitution, joint accept or reject on the
   device; the host reads PCG's stopping test once a CG iteration.
 
@@ -30,9 +31,10 @@ import numpy as np
 import torch
 
 from ..graph.store import _fixed_rows, _tensors
+from ..ops import segment_sum as ss
 from ..utils import lie
 from .pcg import pcg
-from .pose_graph import _inv, _jtwj, _pose7_to_T, _segment_sum, _T_to_pose7, _weigh
+from .pose_graph import _inv, _jtwj, _pose7_to_T, _T_to_pose7, _weigh
 
 
 class BAProblem(NamedTuple):
@@ -76,6 +78,7 @@ def optimize_ba(ba: BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambda0: 
     free_c = (ba.pose_mask & ~ba.fixed).to(dtype)
     free_p = ba.point_mask.to(dtype)
     ci, pi = ba.obs_ij[:, 0], ba.obs_ij[:, 1]
+    ci_seg, pi_seg = ss.SegmentIndex(ci, NP), ss.SegmentIndex(pi, NL)
     eye3, eye6 = torch.eye(3, dtype=dtype, device=dev), torch.eye(6, dtype=dtype, device=dev)
 
     def chi2_of(poses, points):
@@ -88,20 +91,20 @@ def optimize_ba(ba: BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambda0: 
         e, Jc, Jp, w, chi2 = _linearize(ba._replace(poses=poses, points=points))
 
         we = torch.einsum("kij,kj->ki", w, e)
-        g_c = _segment_sum(torch.einsum("kdi,kd->ki", Jc, we), ci, NP)
-        g_p = _segment_sum(torch.einsum("kdi,kd->ki", Jp, we), pi, NL)
-        D_c = _segment_sum(_jtwj(Jc, w, Jc), ci, NP)
-        H_pp = _segment_sum(_jtwj(Jp, w, Jp), pi, NL)
+        g_c = ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, we), ci_seg)
+        g_p = ss.segment_sum(torch.einsum("kdi,kd->ki", Jp, we), pi_seg)
+        D_c = ss.segment_sum(_jtwj(Jc, w, Jc), ci_seg)
+        H_pp = ss.segment_sum(_jtwj(Jp, w, Jp), pi_seg)
         H_pp_d = H_pp + (lam * H_pp * eye3 + 1e-6 * eye3)
         H_pp_inv = _inv(torch.where(free_p[:, None, None] > 0, H_pp_d, eye3))
 
         def Hcp_apply(vp, Jc=Jc, Jp=Jp, w=w):  # (NL, 3) -> (NP, 6): sum_obs Jc^T W Jp vp
             WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jp, vp[pi]))
-            return _segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci, NP)
+            return ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg)
 
         def Hpc_apply(vc, Jc=Jc, Jp=Jp, w=w):  # (NP, 6) -> (NL, 3)
             WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, vc[ci]))
-            return _segment_sum(torch.einsum("kdi,kd->ki", Jp, WJv), pi, NL)
+            return ss.segment_sum(torch.einsum("kdi,kd->ki", Jp, WJv), pi_seg)
 
         # Schur right-hand side: b_s = -g_c + H_cp H_pp^-1 g_p
         b_s = (-g_c + Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, g_p))) * free_c[:, None]
@@ -110,7 +113,7 @@ def optimize_ba(ba: BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambda0: 
         def schur_hvp(v, Jc=Jc, w=w, lam_D=lam_D, H_pp_inv=H_pp_inv, Hcp_apply=Hcp_apply, Hpc_apply=Hpc_apply):
             vc = v[0] * free_c[:, None]
             WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, vc[ci]))
-            hcc = _segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci, NP) + torch.einsum("kij,kj->ki", lam_D, vc)
+            hcc = ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg) + torch.einsum("kij,kj->ki", lam_D, vc)
             out = hcc - Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, Hpc_apply(vc)))
             return (out * free_c[:, None] + (1.0 - free_c)[:, None] * v[0],)
 

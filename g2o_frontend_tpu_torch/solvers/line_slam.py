@@ -35,7 +35,7 @@ from ..graph.store import _edge_arrays, _fixed_rows, _tensors
 from ..utils import lie
 from .pcg import pcg
 from .pose_graph import (Linearization, _block_jacobi_precond, _compose_hvp, _diag_blocks_se2, _grad_se2,
-                         _hvp_edges_se2, _weigh, se2_pp_residual)
+                         _hvp_edges_se2, _weigh, edge_segments, se2_pp_residual)
 
 
 class LineGraph(NamedTuple):
@@ -131,13 +131,14 @@ def lm_with_landmarks(poses, lms, pp_ij, pl_ij, free_p, free_l, linearize, retra
     retract(poses, lms, dp, dl) -> the updated (poses, lms). Returns (poses,
     lms, chi2 trace (iters+1,))."""
     layout = SimpleNamespace(poses=poses, landmarks=lms, pp_ij=pp_ij, pl_ij=pl_ij)
+    seg = edge_segments(layout)  # the edge ends sorted once, for every sum of the solve
     lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
     trace = [linearize(poses, lms, False).chi2]
     for _ in range(iters):
         lin = linearize(poses, lms, True)
-        gp, gl = _grad_se2(layout, lin)
-        Dp, Dl = _diag_blocks_se2(layout, lin)
-        hvp = _compose_hvp(_hvp_edges_se2(layout, lin), free_p, free_l, lam, Dp, Dl)
+        gp, gl = _grad_se2(layout, lin, seg)
+        Dp, Dl = _diag_blocks_se2(layout, lin, seg)
+        hvp = _compose_hvp(_hvp_edges_se2(layout, lin, seg), free_p, free_l, lam, Dp, Dl)
         precond = _block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
         (dp, dl), _, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), precond, max_iters=cg_iters,
                              rtol=1e-8)

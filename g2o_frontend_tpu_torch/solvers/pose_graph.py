@@ -17,7 +17,10 @@ to ONE shared 6-vector gives each edge's (6, 6) Jacobian at once: the
 batched equivalent of ``vmap(jacfwd)``.
 
 Gradient, block diagonal and Hessian-vector products are assembled with
-``index_add_`` (JAX's ``segment_sum``); the Newton system is solved
+`ops.segment_sum` (JAX's ``segment_sum``): each solve sorts its edge
+indices once (`edge_segments`), and every sum then adds a vertex's edges
+in their order, on the card by a kernel with no atomics, so a solve
+repeats bit for bit. The Newton system is solved
 matrix-free by PCG (`pcg.py`) with a block-Jacobi or a chain
 (block-tridiagonal, `tridiag.py`) preconditioner, or, in
 `optimize_se2_direct`, by a dense Cholesky factor. Gauge freedom is handled
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.store import PoseGraph2D, PoseGraph3D
+from ..ops import segment_sum as ss
 from ..utils import lie
 from .pcg import pcg
 from .tridiag import cr_factor, cr_solve
@@ -80,8 +84,23 @@ def _weigh(e, info, mask, huber_delta):
     return info * (s * mask)[:, None, None], torch.where(mask, s * chi2, 0.0).sum()
 
 
-def _segment_sum(values, index, n):
-    return values.new_zeros((n,) + values.shape[1:]).index_add_(0, index, values)
+class EdgeSegments(NamedTuple):
+    """The segment indices of an SE2 graph's edge ends, built once a solve:
+    pose-pose edges by their first and second pose, pose-landmark edges
+    by their pose and their landmark."""
+
+    pp_i: ss.SegmentIndex
+    pp_j: ss.SegmentIndex
+    pl_p: ss.SegmentIndex
+    pl_l: ss.SegmentIndex
+
+
+def edge_segments(g) -> EdgeSegments:
+    """`EdgeSegments` of a graph (or any namespace with poses, landmarks,
+    pp_ij and pl_ij)."""
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    return EdgeSegments(ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP),
+                        ss.SegmentIndex(g.pl_ij[:, 0], NP), ss.SegmentIndex(g.pl_ij[:, 1], NL))
 
 
 # -- SE2 ----------------------------------------------------------------------------
@@ -133,16 +152,16 @@ def linearize_se2(g: PoseGraph2D, huber_delta=None) -> Linearization:
     return Linearization(e_pp, Ji_pp, Jj_pp, w_pp, e_pl, Jp_pl, Jl_pl, w_pl, total)
 
 
-def _grad_se2(g: PoseGraph2D, lin: Linearization):
-    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+def _grad_se2(g: PoseGraph2D, lin: Linearization, seg: EdgeSegments | None = None):
+    seg = edge_segments(g) if seg is None else seg
     we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
-    gp = _segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), g.pp_ij[:, 0], NP)
-    gp = gp + _segment_sum(torch.einsum("kdi,kd->ki", lin.Jj_pp, we), g.pp_ij[:, 1], NP)
-    gl = g.poses.new_zeros((NL, 2))
+    gp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), seg.pp_i)
+    gp = gp + ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jj_pp, we), seg.pp_j)
+    gl = g.poses.new_zeros((seg.pl_l.n, 2))
     if lin.e_pl is not None:
         we_pl = torch.einsum("kij,kj->ki", lin.w_pl, lin.e_pl)
-        gp = gp + _segment_sum(torch.einsum("kdi,kd->ki", lin.Jp_pl, we_pl), g.pl_ij[:, 0], NP)
-        gl = _segment_sum(torch.einsum("kdi,kd->ki", lin.Jl_pl, we_pl), g.pl_ij[:, 1], NL)
+        gp = gp + ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jp_pl, we_pl), seg.pl_p)
+        gl = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jl_pl, we_pl), seg.pl_l)
     return gp, gl
 
 
@@ -150,36 +169,36 @@ def _jtwj(Ja, w, Jb):
     return torch.einsum("kdi,kde,kej->kij", Ja, w, Jb)
 
 
-def _diag_blocks_se2(g: PoseGraph2D, lin: Linearization):
-    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
-    Dp = _segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), g.pp_ij[:, 0], NP)
-    Dp = Dp + _segment_sum(_jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), g.pp_ij[:, 1], NP)
-    Dl = g.poses.new_zeros((NL, 2, 2))
+def _diag_blocks_se2(g: PoseGraph2D, lin: Linearization, seg: EdgeSegments | None = None):
+    seg = edge_segments(g) if seg is None else seg
+    Dp = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), seg.pp_i)
+    Dp = Dp + ss.segment_sum(_jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), seg.pp_j)
+    Dl = g.poses.new_zeros((seg.pl_l.n, 2, 2))
     if lin.e_pl is not None:
-        Dp = Dp + _segment_sum(_jtwj(lin.Jp_pl, lin.w_pl, lin.Jp_pl), g.pl_ij[:, 0], NP)
-        Dl = _segment_sum(_jtwj(lin.Jl_pl, lin.w_pl, lin.Jl_pl), g.pl_ij[:, 1], NL)
+        Dp = Dp + ss.segment_sum(_jtwj(lin.Jp_pl, lin.w_pl, lin.Jp_pl), seg.pl_p)
+        Dl = ss.segment_sum(_jtwj(lin.Jl_pl, lin.w_pl, lin.Jl_pl), seg.pl_l)
     return Dp, Dl
 
 
-def _hvp_edges_se2(g: PoseGraph2D, lin: Linearization):
+def _hvp_edges_se2(g: PoseGraph2D, lin: Linearization, seg: EdgeSegments | None = None):
     """The pure per-edge Gauss-Newton product ``sum_e J^T W J v``: no
     damping and no gauge handling."""
-    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    seg = edge_segments(g) if seg is None else seg
     I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
 
     def hvp(v):
         vp, vl = v
         Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
         WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
-        hp = _segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), I, NP)
-        hp = hp + _segment_sum(torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), J, NP)
-        hl = vp.new_zeros((NL, 2))
+        hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), seg.pp_i)
+        hp = hp + ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), seg.pp_j)
+        hl = vp.new_zeros((seg.pl_l.n, 2))
         if lin.e_pl is not None:
             P, L = g.pl_ij[:, 0], g.pl_ij[:, 1]
             Jv2 = torch.einsum("kdi,ki->kd", lin.Jp_pl, vp[P]) + torch.einsum("kdi,ki->kd", lin.Jl_pl, vl[L])
             WJv2 = torch.einsum("kde,ke->kd", lin.w_pl, Jv2)
-            hp = hp + _segment_sum(torch.einsum("kdi,kd->ki", lin.Jp_pl, WJv2), P, NP)
-            hl = _segment_sum(torch.einsum("kdi,kd->ki", lin.Jl_pl, WJv2), L, NL)
+            hp = hp + ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jp_pl, WJv2), seg.pl_p)
+            hl = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Jl_pl, WJv2), seg.pl_l)
         return hp, hl
 
     return hvp
@@ -226,17 +245,19 @@ def _block_jacobi_precond(Dp, Dl, free_p, free_l, lm_lambda):
 
 def _chain(g):
     """The odometry-chain slots: pose-pose edge k couples U[i] iff j == i+1;
-    the others go to a harmless last slot."""
+    the others go to the dump slot NP (their `SegmentIndex`). The JAX
+    version sums them into the last slot, which `_chain_blocks` zeroes."""
     I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
     chain = (J == I + 1) & g.pp_mask
-    return chain, torch.where(chain, I, g.poses.shape[0] - 1)
+    NP = g.poses.shape[0]
+    return chain, ss.SegmentIndex(torch.where(chain, I, NP), NP)
 
 
 def _chain_blocks(lin, chain, chain_i, free_p):
     """(L, U) off-diagonal blocks of the chain's block-tridiagonal part,
     zero where either end is fixed or masked."""
-    NP, d = free_p.shape[0], lin.Ji_pp.shape[-1]
-    U = _segment_sum(_jtwj(lin.Ji_pp, lin.w_pp * chain[:, None, None], lin.Jj_pp), chain_i, NP)
+    d = lin.Ji_pp.shape[-1]
+    U = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp * chain[:, None, None], lin.Jj_pp), chain_i)
     fnext = torch.cat([free_p[1:], free_p.new_zeros(1)])
     U = U * (free_p * fnext)[:, None, None]
     return torch.cat([U.new_zeros((1, d, d)), U.transpose(1, 2)[:-1]]), U
@@ -263,6 +284,7 @@ def optimize_se2(
     free_l = g.landmark_mask.to(dtype)
     if precond == "chain":
         chain, chain_i = _chain(g)
+    seg = edge_segments(g)
 
     trace = [linearize_se2(g, huber_delta).chi2]
     poses, lms = g.poses, g.landmarks
@@ -271,9 +293,9 @@ def optimize_se2(
     for _ in range(iters):
         gk = g.with_poses(poses, lms)
         lin = linearize_se2(gk, huber_delta)
-        gp, gl = _grad_se2(gk, lin)
-        Dp, Dl = _diag_blocks_se2(gk, lin)
-        hvp = _compose_hvp(_hvp_edges_se2(gk, lin), free_p, free_l, lam, Dp, Dl)
+        gp, gl = _grad_se2(gk, lin, seg)
+        Dp, Dl = _diag_blocks_se2(gk, lin, seg)
+        hvp = _compose_hvp(_hvp_edges_se2(gk, lin, seg), free_p, free_l, lam, Dp, Dl)
         if precond == "chain":
             L_pre, U_pre = _chain_blocks(lin, chain, chain_i, free_p)
             fac, Dl_inv = cr_factor(L_pre, _damped(Dp, lam, free_p), U_pre), _damped_inverse(Dl, lam, free_l)
@@ -298,47 +320,59 @@ def optimize_se2(
     return g.with_poses(poses, lms), OptStats(torch.stack(trace), lam, cg_total)
 
 
-def _dense_system(g: PoseGraph2D, lin: Linearization):
-    """The full Gauss-Newton system as a dense (D, D) matrix and (D,)
-    vector, D = 3 NP + 2 NL, assembled by scatter-add."""
+def _dense_plan(g: PoseGraph2D):
+    """The flat (D, D) and (D,) targets of `_dense_system`'s blocks, in its
+    order of addition, as segment indices: built once a solve. The (D, D)
+    index is compacted to the entries that some edge touches."""
     NP, NL = g.poses.shape[0], g.landmarks.shape[0]
     D = 3 * NP + 2 * NL
-    H = g.poses.new_zeros(D * D)
-    b = g.poses.new_zeros(D)
-    d3 = torch.arange(3, device=g.poses.device)
-    d2 = torch.arange(2, device=g.poses.device)
+    dev = g.poses.device
+    H_idx, b_idx = [], []
 
-    def add(r0, c0, blk):
-        rd = d3 if blk.shape[-2] == 3 else d2
-        cd = d3 if blk.shape[-1] == 3 else d2
-        flat = (r0[:, None, None] + rd[None, :, None]) * D + (c0[:, None, None] + cd[None, None, :])
-        H.index_add_(0, flat.reshape(-1), blk.reshape(-1))
+    def add(r0, c0, nr, nc):
+        rd, cd = torch.arange(nr, device=dev), torch.arange(nc, device=dev)
+        H_idx.append(((r0[:, None, None] + rd[None, :, None]) * D + (c0[:, None, None] + cd[None, None, :])).reshape(-1))
 
-    def add_b(r0, vec):
-        rd = d3 if vec.shape[-1] == 3 else d2
-        b.index_add_(0, (r0[:, None] + rd[None]).reshape(-1), vec.reshape(-1))
+    def add_b(r0, nr):
+        b_idx.append((r0[:, None] + torch.arange(nr, device=dev)[None]).reshape(-1))
 
     i0, j0 = 3 * g.pp_ij[:, 0], 3 * g.pp_ij[:, 1]
+    for r0, c0 in ((i0, i0), (i0, j0), (j0, i0), (j0, j0)):
+        add(r0, c0, 3, 3)
+    add_b(i0, 3)
+    add_b(j0, 3)
+    if g.pl_ij.shape[0] > 0:
+        p0, l0 = 3 * g.pl_ij[:, 0], 3 * NP + 2 * g.pl_ij[:, 1]
+        for (r0, nr), (c0, nc) in (((p0, 3), (p0, 3)), ((p0, 3), (l0, 2)), ((l0, 2), (p0, 3)), ((l0, 2), (l0, 2))):
+            add(r0, c0, nr, nc)
+        add_b(p0, 3)
+        add_b(l0, 2)
+    H_ids, H_seg = ss.compact_index(torch.cat(H_idx))
+    return D, H_ids, H_seg, ss.SegmentIndex(torch.cat(b_idx), D)
+
+
+def _dense_system(g: PoseGraph2D, lin: Linearization, plan=None):
+    """The full Gauss-Newton system as a dense (D, D) matrix and (D,)
+    vector, D = 3 NP + 2 NL, assembled by segment sums over `_dense_plan`'s
+    targets (each entry adds its blocks in the plan's order)."""
+    D, H_ids, H_seg, b_seg = _dense_plan(g) if plan is None else plan
+    blocks, vecs = [], []
     WJi = torch.einsum("kde,kei->kdi", lin.w_pp, lin.Ji_pp)
     WJj = torch.einsum("kde,kei->kdi", lin.w_pp, lin.Jj_pp)
-    add(i0, i0, torch.einsum("kdi,kdj->kij", lin.Ji_pp, WJi))
-    add(i0, j0, torch.einsum("kdi,kdj->kij", lin.Ji_pp, WJj))
-    add(j0, i0, torch.einsum("kdi,kdj->kij", lin.Jj_pp, WJi))
-    add(j0, j0, torch.einsum("kdi,kdj->kij", lin.Jj_pp, WJj))
+    blocks += [torch.einsum("kdi,kdj->kij", lin.Ji_pp, WJi), torch.einsum("kdi,kdj->kij", lin.Ji_pp, WJj),
+               torch.einsum("kdi,kdj->kij", lin.Jj_pp, WJi), torch.einsum("kdi,kdj->kij", lin.Jj_pp, WJj)]
     We = torch.einsum("kde,ke->kd", lin.w_pp, lin.e_pp)
-    add_b(i0, torch.einsum("kdi,kd->ki", lin.Ji_pp, We))
-    add_b(j0, torch.einsum("kdi,kd->ki", lin.Jj_pp, We))
+    vecs += [torch.einsum("kdi,kd->ki", lin.Ji_pp, We), torch.einsum("kdi,kd->ki", lin.Jj_pp, We)]
     if lin.e_pl is not None:
-        p0, l0 = 3 * g.pl_ij[:, 0], 3 * NP + 2 * g.pl_ij[:, 1]
         WJp = torch.einsum("kde,kei->kdi", lin.w_pl, lin.Jp_pl)
         WJl = torch.einsum("kde,kei->kdi", lin.w_pl, lin.Jl_pl)
-        add(p0, p0, torch.einsum("kdi,kdj->kij", lin.Jp_pl, WJp))
-        add(p0, l0, torch.einsum("kdi,kdj->kij", lin.Jp_pl, WJl))
-        add(l0, p0, torch.einsum("kdi,kdj->kij", lin.Jl_pl, WJp))
-        add(l0, l0, torch.einsum("kdi,kdj->kij", lin.Jl_pl, WJl))
+        blocks += [torch.einsum("kdi,kdj->kij", lin.Jp_pl, WJp), torch.einsum("kdi,kdj->kij", lin.Jp_pl, WJl),
+                   torch.einsum("kdi,kdj->kij", lin.Jl_pl, WJp), torch.einsum("kdi,kdj->kij", lin.Jl_pl, WJl)]
         Wep = torch.einsum("kde,ke->kd", lin.w_pl, lin.e_pl)
-        add_b(p0, torch.einsum("kdi,kd->ki", lin.Jp_pl, Wep))
-        add_b(l0, torch.einsum("kdi,kd->ki", lin.Jl_pl, Wep))
+        vecs += [torch.einsum("kdi,kd->ki", lin.Jp_pl, Wep), torch.einsum("kdi,kd->ki", lin.Jl_pl, Wep)]
+    H = lin.e_pp.new_zeros(D * D)
+    H[H_ids] = ss.segment_sum(torch.cat([x.reshape(-1) for x in blocks]), H_seg)
+    b = ss.segment_sum(torch.cat([x.reshape(-1) for x in vecs]), b_seg)
     return H.view(D, D), b
 
 
@@ -369,10 +403,11 @@ def optimize_se2_direct(
     poses, lms = g.poses, g.landmarks
     lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
     nu = torch.full_like(lam, 2.0)
+    plan = _dense_plan(g)
     k = 0
     while k < iters:
         lin = linearize_se2(g.with_poses(poses, lms), huber_delta)
-        H, b = _dense_system(g, lin)
+        H, b = _dense_system(g, lin, plan)
         # gauge and mask projection: fixed or padded DOFs become identity rows
         Hd = H.mul_(free[:, None] * free[None, :])
         diag = Hd.diagonal()
@@ -466,6 +501,7 @@ def optimize_se3(
     dtype = g.poses.dtype
     NP = g.poses.shape[0]
     I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
+    I_seg, J_seg = ss.SegmentIndex(I, NP), ss.SegmentIndex(J, NP)
     free_p = (g.pose_mask & ~g.fixed).to(dtype)
     if precond == "chain":
         chain, chain_i = _chain(g)
@@ -477,11 +513,11 @@ def optimize_se3(
     for _ in range(iters):
         lin = linearize_se3(g.with_poses(poses), huber_delta)
         we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
-        gp = _segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), I, NP) + _segment_sum(
-            torch.einsum("kdi,kd->ki", lin.Jj_pp, we), J, NP
+        gp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), I_seg) + ss.segment_sum(
+            torch.einsum("kdi,kd->ki", lin.Jj_pp, we), J_seg
         )
-        Dp = _segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), I, NP) + _segment_sum(
-            _jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), J, NP
+        Dp = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), I_seg) + ss.segment_sum(
+            _jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), J_seg
         )
 
         def hvp(v, lin=lin, Dp=Dp, lam=lam):
@@ -489,8 +525,8 @@ def optimize_se3(
             vp = vp * free_p[:, None]
             Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
             WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
-            hp = _segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), I, NP) + _segment_sum(
-                torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), J, NP
+            hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), I_seg) + ss.segment_sum(
+                torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), J_seg
             )
             hp = hp + lam * torch.einsum("kij,kj->ki", Dp, vp)
             return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * vp,)

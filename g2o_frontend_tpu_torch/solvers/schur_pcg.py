@@ -9,7 +9,8 @@ chain gives the Hessian an O(N^2) condition number.
 1. **Exact Schur elimination of the landmarks.** Hll is block-diagonal
    (2x2 per landmark), so the reduced pose system
    ``S = Hpp - Hpl Hll^-1 Hlp`` is applied matrix-free with batched
-   scatter-adds; the landmark increments are recovered exactly afterwards.
+   segment sums (`ops.segment_sum`, their indices sorted once a solve);
+   the landmark increments are recovered exactly afterwards.
 2. **A block-tridiagonal chain preconditioner** solved by cyclic reduction
    (`tridiag.py`), either with the full landmark arrow through Woodbury
    (while the dense 2NL x 2NL capacitance stays small) or with a per-pose
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..graph.store import PoseGraph2D
+from ..ops import segment_sum as ss
 from ..utils import lie
 from . import pose_graph as pg
 from .pcg import pcg
@@ -48,9 +50,15 @@ def _damped_blocks(D, lam, free, d):
     return torch.where(free[:, None, None] > 0, Dd, eye)
 
 
-def _landmark_arrow(C, pose_k, lm_k, free_p, NP, NL):
-    """Dense V (NP, 3, 2 NL): the pose-landmark blocks, gauge-projected."""
-    Vd = pg._segment_sum(C.reshape(-1, 6), pose_k * NL + lm_k, NP * NL).reshape(NP, NL, 3, 2)
+def _arrow_index(pose_k, lm_k, NP, NL):
+    """The (pose, landmark) slot of each pose-landmark edge, NP * NL slots."""
+    return ss.SegmentIndex(pose_k * NL + lm_k, NP * NL)
+
+
+def _landmark_arrow(C, arrow, free_p, NP, NL):
+    """Dense V (NP, 3, 2 NL): the pose-landmark blocks (summed over
+    `_arrow_index`'s slots), gauge-projected."""
+    Vd = ss.segment_sum(C.reshape(-1, 6), arrow).reshape(NP, NL, 3, 2)
     return Vd.permute(0, 2, 1, 3).reshape(NP, 3, 2 * NL) * free_p[:, None, None]
 
 
@@ -77,10 +85,11 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
     free_p, free_l = consts["free_p"], consts["free_l"]
     has_pl = consts["has_pl"]
     pose_k, lm_k = consts["pose_k"], consts["lm_k"]
+    seg = consts["seg"]
     use_woodbury = consts["use_woodbury"]
 
-    gp, gl = pg._grad_se2(gk, lin)
-    Dp, Dl = pg._diag_blocks_se2(gk, lin)
+    gp, gl = pg._grad_se2(gk, lin, seg)
+    Dp, Dl = pg._diag_blocks_se2(gk, lin, seg)
     bp = -gp * free_p[:, None]
 
     if has_pl:
@@ -88,15 +97,15 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
         C = pg._jtwj(lin.Jp_pl, lin.w_pl, lin.Jl_pl)
         Hll_inv = pg._inv(_damped_blocks(Dl, lam, free_l, 2))
         ybl = torch.einsum("lij,lj->li", Hll_inv, -gl * free_l[:, None])
-        bs = bp - free_p[:, None] * pg._segment_sum(torch.einsum("kij,kj->ki", C, ybl[lm_k]), pose_k, NP)
+        bs = bp - free_p[:, None] * ss.segment_sum(torch.einsum("kij,kj->ki", C, ybl[lm_k]), seg.pl_p)
         # per-pose Schur diagonal correction (exact when each (pose,
         # landmark) pair has one observation edge, as in g2o graphs)
-        corr = None if use_woodbury else pg._segment_sum(
-            torch.einsum("kij,kjl,kml->kim", C, Hll_inv[lm_k], C), pose_k, NP)
+        corr = None if use_woodbury else ss.segment_sum(
+            torch.einsum("kij,kjl,kml->kim", C, Hll_inv[lm_k], C), seg.pl_p)
     else:
         bs, corr = bp, torch.zeros_like(Dp)
 
-    edge_hvp = pg._hvp_edges_se2(gk, lin)
+    edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
     zeros_l = gk.poses.new_zeros((NL, 2))
     diagDp = torch.diagonal(Dp, dim1=-2, dim2=-1)
 
@@ -106,9 +115,9 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
         hp, _ = edge_hvp((vp, zeros_l))
         hp = hp + lam * diagDp * vp
         if has_pl:
-            t = pg._segment_sum(torch.einsum("kji,kj->ki", C, vp[pose_k]), lm_k, NL)
+            t = ss.segment_sum(torch.einsum("kji,kj->ki", C, vp[pose_k]), seg.pl_l)
             y = torch.einsum("lij,lj->li", Hll_inv, t)
-            hp = hp - pg._segment_sum(torch.einsum("kij,kj->ki", C, y[lm_k]), pose_k, NP)
+            hp = hp - ss.segment_sum(torch.einsum("kij,kj->ki", C, y[lm_k]), seg.pl_p)
         return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * v[0],)
 
     # T: the damped odometry chain, factored by cyclic reduction once per LM
@@ -119,7 +128,7 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
         # when Hpp has no off-chain blocks. M^-1 = T^-1 + T^-1 V K^-1 V^T T^-1
         # with K = A - V^T T^-1 V (2 NL x 2 NL, dense: landmarks are few)
         fac = cr_factor(L_pre, _damped_blocks(Dp, lam, free_p, 3), U_pre)
-        Vd = _landmark_arrow(C, pose_k, lm_k, free_p, NP, NL)
+        Vd = _landmark_arrow(C, consts["arrow"], free_p, NP, NL)
         X = cr_solve(fac, Vd)  # T^-1 V, multi-column cyclic reduction
         # V and X as (3 NP, 2 NL) matrices: their products need no copies
         V2, X2 = Vd.reshape(3 * NP, 2 * NL), X.reshape(3 * NP, 2 * NL)
@@ -140,7 +149,7 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
     def recover_dl(dp):
         if not has_pl:
             return zeros_l
-        t = pg._segment_sum(torch.einsum("kji,kj->ki", C, dp[pose_k]), lm_k, NL)
+        t = ss.segment_sum(torch.einsum("kji,kj->ki", C, dp[pose_k]), seg.pl_l)
         return (ybl - torch.einsum("lij,lj->li", Hll_inv, t)) * free_l[:, None]
 
     return smv, precond, bs, recover_dl
@@ -169,7 +178,7 @@ def landmark_covariance_se2(g: PoseGraph2D, lam: float = 1e-6, huber_delta: floa
     C = pg._jtwj(lin.Jp_pl, lin.w_pl, lin.Jl_pl)
     L_pre, U_pre = pg._chain_blocks(lin, chain, chain_i, free_p)
     fac = cr_factor(L_pre, _damped_blocks(Dp, lam, free_p, 3), U_pre)
-    Vd = _landmark_arrow(C, g.pl_ij[:, 0], g.pl_ij[:, 1], free_p, NP, NL)
+    Vd = _landmark_arrow(C, _arrow_index(g.pl_ij[:, 0], g.pl_ij[:, 1], NP, NL), free_p, NP, NL)
     X = cr_solve(fac, Vd)
     K = _block_diag(_damped_blocks(Dl, lam, free_l, 2)) - Vd.reshape(3 * NP, 2 * NL).T @ X.reshape(3 * NP, 2 * NL)
     return pg._inv(K).reshape(NL, 2, NL, 2)
@@ -195,8 +204,9 @@ def optimize_se2_schur(
     has_pl = g.pl_ij.shape[0] > 0
     use_woodbury = (has_pl and 2 * NL <= WOODBURY_MAX_DIM) if woodbury is None else (woodbury and has_pl)
     chain, chain_i = pg._chain(g)
-    consts = dict(NP=NP, NL=NL, free_p=free_p, free_l=free_l, has_pl=has_pl,
-                  pose_k=g.pl_ij[:, 0] if has_pl else None, lm_k=g.pl_ij[:, 1] if has_pl else None,
+    pose_k, lm_k = (g.pl_ij[:, 0], g.pl_ij[:, 1]) if has_pl else (None, None)
+    consts = dict(NP=NP, NL=NL, free_p=free_p, free_l=free_l, has_pl=has_pl, pose_k=pose_k, lm_k=lm_k,
+                  seg=pg.edge_segments(g), arrow=_arrow_index(pose_k, lm_k, NP, NL) if use_woodbury else None,
                   use_woodbury=use_woodbury, chain=chain, chain_i=chain_i)
 
     trace = [pg.linearize_se2(g, huber_delta).chi2]
