@@ -16,7 +16,8 @@ Phases, one line each or more, any failure exits non-zero:
   1. device: the card, its power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/fused_aligner.cu, csrc/linearizer.cu,
      csrc/gather_probe.cu and csrc/segment_sum.cu from the checkout, all at
-     once;
+     once, and prints each kernel's registers, stack and spills and the
+     segment-sum kernel's shared memory a block at the main path's shapes;
   3. kernel 1 (one aligner system) against its plain PyTorch version on the
      640x480 bench pair at three poses (identity, ground truth, a 5 cm /
      3 deg perturbation), and once more with the non-robust chi2 gate;
@@ -114,9 +115,13 @@ Phases, one line each or more, any failure exits non-zero:
      the card bit for bit, each trace's first LM iterations within rtol
      1e-3 of the CPU's, and a 30-pose BA within 1.01x the float64 control;
      (e) the segment-sum kernel against its plain version on every
-     distinct sum of one LM iteration of phase 12's Schur solve and of
-     (d)'s BA: bit-equal to the CPU's index_add_, two launches bit-equal,
-     timed in turns with the atomic index_add_;
+     distinct sum of every path that launches it: one LM iteration of
+     phase 12's Schur solve and of (d)'s BA, one line-SLAM extraction and
+     solve of (b), one fusion of phase 11 (b) and its voxels at 0.02 and
+     0.1 m, and one of the Schur sums as float64: bit-equal to the CPU's
+     index_add_ and to the previous design, two launches bit-equal, timed
+     in turns with the previous design and the atomic index_add_, beside
+     its bound, its longest segment and its path's launches;
  15. slice 6, the distributed solvers on 8 shards stacked on
      the card (StackedMesh), each step also on the CPU: (a) the halo
      exchange in both wire modes and SPIKE at test size against dense
@@ -230,10 +235,14 @@ def ptxas_lines(log):
     import re
 
     kernels = [("(unnamed)", [])]
+    types = {"f": "float", "d": "double"}
     for ln in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?(?<!\d)\d+([a-z][a-z_]*_kernel)", ln)
+        entry = re.search(r"Compiling entry function '\w*?(?<!\d)\d+([a-z][a-z_]*_kernel)(?:I([fd])(?:Li(\d+)E)?E)?",
+                          ln)
         if entry:
-            kernels.append((entry.group(1), []))
+            name, ty, num = entry.groups()
+            args = [a for a in (types.get(ty), num) if a]
+            kernels.append((name + (f"<{', '.join(args)}>" if args else ""), []))
         elif "registers" in ln or "spill" in ln:
             kernels[-1][1].append(ln.replace("ptxas info    :", "").strip())
     return [k for k in kernels if k[1]]
@@ -256,6 +265,11 @@ def build_kernels():
             for name, lines in ptxas_lines(log):
                 say("build", f"  {name}: " + " | ".join(lines))
     say("build", f"{len(modules)} sources built in {time.perf_counter() - t0:.1f} s of wall time")
+    shapes = ((160000, 200, 36, 4, "BA cameras"), (160000, 200, 6, 4, "BA camera vectors"),
+              (20803, 7120 * 151, 6, 4, "the Schur arrow"),
+              (614400, 614400, 4, 4, "a fusion"), (3000, 151, 3, 8, "float64, C = 3"))
+    say("build", "  segment_sum_kernel's dynamic shared memory a block (ops/segment_sum.layout): " + "; ".join(
+        f"{label} {ss.layout(E, n, C, w).smem} B" for E, n, C, w, label in shapes))
 
 
 def phase_kernel1(ctx):
@@ -844,10 +858,12 @@ def phase_fusion(ctx):
         calls.append(((keep_c, drop_c, X, projector), out))
         return out
 
+    launches = ctx.setdefault("segment_sum_launches", {})
     map_merger.fuse_clouds = recording
     try:
         t0 = time.perf_counter()
-        n_fused = map_merger.MapMerger(mgr, cloud_cache=tracker.cache).collapse_redundant(*gates)
+        n_fused = counted(lambda: map_merger.MapMerger(mgr, cloud_cache=tracker.cache).collapse_redundant(*gates),
+                          launches, "fusion")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -858,7 +874,7 @@ def phase_fusion(ctx):
         f"fused in {secs:.3f} s")
     check(n_fused >= 1 and len(calls) == n_fused, f"{n_fused} pairs fused, {len(calls)} fusions recorded")
 
-    worst_share, fusion_ms, voxel_ms = 0.0, [], {0.02: [], 0.1: []}
+    worst_share, fusion_ms, voxel_ms, voxel_launches = 0.0, [], {0.02: [], 0.1: []}, {}
     for i, (args, (depth, fused)) in enumerate(calls):
         keep_c, drop_c, X, proj = args
         n_pix = proj.rows * proj.cols
@@ -881,9 +897,16 @@ def phase_fusion(ctx):
         check(after < before and changed > 0, f"fusion {i} fused nothing")
         check(differ / before < 1e-3 and int((both & ~same_w).sum()) <= differ, f"fusion {i}: decisions differ")
         check(pts_ok, f"fusion {i}: points differ from the CPU by {pts_err}")
+        if i == 0:  # phase 14 (e) holds the segment sums of this fusion and its voxels
+            recorded = ctx.setdefault("sums_recorded", [])
+            recorded += [("fusion", "fusion", c) for c in record_sums(lambda: fuse(*args))]
+            for res in voxel_ms:
+                recorded += [(f"voxels at {res} m", "voxels", c) for c in
+                             record_sums(lambda: voxelize(fused.points, fused.mask, res, 1 << 16))]
         # (c) voxel downsampling of the fused cloud
         for res in voxel_ms:
-            c, n, occ = voxelize(fused.points, fused.mask, res, 1 << 16)
+            c, n, occ = counted(lambda: voxelize(fused.points, fused.mask, res, 1 << 16), voxel_launches,
+                               f"voxels {i} {res}")
             voxel_ms[res].append(median_ms(lambda: voxelize(fused.points, fused.mask, res, 1 << 16)))
             cc, nc, occ_c = voxelize(fused.points.cpu(), fused.mask.cpu(), res, 1 << 16)
             c_ok, c_err = close(c[occ], cc[occ_c])
@@ -893,6 +916,8 @@ def phase_fusion(ctx):
                 f"within {c_err:.3e}")
             check(torch.equal(occ.cpu(), occ_c) and torch.equal(n.cpu(), nc) and c_ok,
                   f"voxels of fusion {i} at {res} m differ from the CPU")
+    launches["voxels"] = sum(voxel_launches.values())
+    say("pwn", f"(b), (c) segment-sum kernel launches: fusion {launches['fusion']}, voxels {launches['voxels']}")
     say("timing", f"(b) fusion of a pair (2 x {n_pix} slots), CUDA events, median per pair: "
         f"{np.median(fusion_ms):.3f} ms (min {min(fusion_ms):.3f}, max {max(fusion_ms):.3f}); worst share of "
         f"collapse decisions differing from the CPU {worst_share:.2e}; (c) voxelize median "
@@ -1186,7 +1211,7 @@ def same_bits(*pairs):
 
 def counted(fn, into, key):
     """fn() with `ops.segment_sum`'s launch count set to 0 just before and
-    read into `into[key]` just after."""
+    read just after, into `into[key]`."""
     from g2o_frontend_tpu_torch.ops import segment_sum as ss
 
     ss.launches = 0
@@ -2026,7 +2051,8 @@ def phase_slice5(ctx, out_dir):
     launches = ctx.setdefault("segment_sum_launches", {})
 
     def line_run():
-        with Recorder(ls, "extract_lines", keep=True) as ext_, Recorder(ls, "optimize_line_graph") as solves_:
+        with Recorder(ls, "extract_lines", keep=True) as ext_, \
+                Recorder(ls, "optimize_line_graph", keep=True) as solves_:
             run_s_ = drive_scans(drv, world)
             merged_ = drv.merge_landmarks()
             chi2_l_, final_s_ = host_s(drv.optimize)
@@ -2034,6 +2060,12 @@ def phase_slice5(ctx, out_dir):
 
     ext, solves, run_s, merged, chi2_l, final_s = counted(line_run, launches, "line_slam")
     extracted = [out for _, _, out in ext.calls]
+    # (e) holds the segment sums of the middle extraction and of the last solve
+    recorded = ctx.setdefault("sums_recorded", [])
+    args, kw, _ = ext.calls[len(ext.calls) // 2]
+    recorded += [("line extraction", "line_slam", c) for c in record_sums(lambda: ls.extract_lines(*args, **kw))]
+    args, kw, _ = solves.calls[-1]
+    recorded += [("line solve", "line_slam", c) for c in record_sums(lambda: ls.optimize_line_graph(*args, **kw))]
     ate_l = ate_xy(np.asarray(drv.poses, np.float64)[:, :2], gt[:, :2])["rmse"]
     say("slice5", f"(b) line SLAM on cuda: {run_s:.2f} s for {n} scans ({n / run_s:.2f} scans/s; a solve every "
         f"{drv.cfg.optimize_each_n}); extract_lines median {np.median(ext.ms()):.3f} ms, {len(solves.events)} solves, "
@@ -2134,50 +2166,127 @@ def record_sums(fn):
     return list(calls.values())
 
 
+def long_segments(seg, lay):
+    """(the rows from which a segment of `seg` takes the segment-sum
+    kernel's long path under the layout `lay`, the number that do): a host
+    read, for reports."""
+    from g2o_frontend_tpu_torch.ops import segment_sum as ss
+
+    if seg.n == 0:
+        return lay.long_min, 0
+    lengths = seg.sorted_lengths.cpu()
+    threshold = ss.long_threshold(lengths, lay)
+    return threshold, int((lengths >= threshold).sum())
+
+
+def index_in_graph(index, values, n):
+    """A `SegmentIndex` over `index` built and summed inside a CUDA graph
+    capture, the graph replayed, then the captured index summed again
+    outside the capture: whether each equals the eager sum bit for bit."""
+    import torch
+
+    from g2o_frontend_tpu_torch.ops import segment_sum as ss
+
+    eager = ss.segment_sum(values, ss.SegmentIndex(index, n))
+    side = torch.cuda.Stream()  # the warm-up a capture asks for, on a side stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.segment_sum(values, ss.SegmentIndex(index, n))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        seg = ss.SegmentIndex(index, n)
+        captured = ss.segment_sum(values, seg)
+    graph.replay()
+    after = ss.segment_sum(values, seg)
+    torch.cuda.synchronize()
+    return dict(replayed=same_bits((captured, eager)), after_capture=same_bits((after, eager)))
+
+
+def turns(fns, like, n=50):
+    """`graph_ms` of each of `fns` in turns, forward then backward (for
+    three: a, b, c, c, b, a), each the lesser of its two, so that a drift
+    of the card's clock falls on all of them; n calls a graph."""
+    from g2o_frontend_tpu_torch.utils.profiling import graph_ms
+
+    first = [graph_ms(f, like, n) for f in fns]
+    second = [graph_ms(f, like, n) for f in reversed(fns)][::-1]
+    return [min(a, b) for a, b in zip(first, second)]
+
+
 def phase_segment_sum(ctx, ba):
     """Phase 14 (e): the segment-sum kernel against its plain version on the
-    sums of one LM iteration of phase 12's Schur solve and of (d)'s BA:
-    each distinct (index, row shape) equal bit for bit to the CPU's
-    index_add_ on CPU copies of its inputs, two launches bit-equal, timed
-    by CUDA graph replays in turns with the atomic index_add_ into n + 1
-    rows (the one PyTorch call that computes the same sum), beside its
-    plain version and its bound. Returns the kernel row's numbers: those of the call
-    with the most bytes, and every call's."""
+    distinct sums of every path that launches it: one LM iteration of phase
+    12's Schur solve and of (d)'s BA, one line-SLAM extraction and solve
+    ((b)), one fusion and its voxels at 0.02 and 0.1 m (phase 11 (b), (c)),
+    and the first Schur sum as float64. For each distinct (index, row
+    shape): `segment_sum` (the kernel) and the previous design each equal
+    bit for bit to the CPU's index_add_ on CPU copies of the inputs, two
+    launches bit-equal; the two timed by CUDA graph replays in turns with
+    the atomic index_add_ into n + 1 rows (the one PyTorch call that
+    computes the same sum), beside the plain version and the bound. Then an
+    index built and summed inside a graph capture (`index_in_graph`) on a
+    line-SLAM and a Schur sum. Returns the kernel row's numbers: those of
+    the call with the most bytes, and every call's."""
     import torch
 
     from g2o_frontend_tpu_torch.ops import segment_sum as ss
     from g2o_frontend_tpu_torch.solvers import ba as tba
     from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
-    from g2o_frontend_tpu_torch.utils.profiling import graph_ms, in_turns
+    from g2o_frontend_tpu_torch.utils.profiling import graph_ms
 
+    t0 = time.perf_counter()
     g = ctx["victoria"]["g"]
-    recorded = [("Schur", c) for c in record_sums(lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS, "iters": 1}))]
-    recorded += [("BA", c) for c in record_sums(lambda: tba.optimize_ba(ba, iters=1, cg_iters=50))]
+    recorded = [("Schur", "schur", c) for c in record_sums(lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS,
+                                                                                                "iters": 1}))]
+    recorded += [("BA", "ba", c) for c in record_sums(lambda: tba.optimize_ba(ba, iters=1, cg_iters=50))]
+    recorded += ctx.pop("sums_recorded", [])
+    values, seg = recorded[0][2]
+    recorded.append(("Schur (as float64)", "schur", (values.double(), seg)))
+    launches = ctx["segment_sum_launches"]
+    torch.cuda.synchronize()
     rows, err = [], 0.0
-    for path, (values, seg) in recorded:
+    for path, key, (values, seg) in recorded:
         E, C, n = values.shape[0], values[0].numel(), seg.n
         k1, k2 = ss.segment_sum(values, seg), ss.segment_sum(values, seg)
+        prev = ss._segment_sum_previous(values, seg)
         plain = ss.segment_sum_reference(values.cpu(), ss.SegmentIndex(seg.index.cpu(), n))
-        twice, cpu_equal = same_bits((k1, k2)), same_bits((k1, plain))
+        equal = dict(twice=same_bits((k1, k2)), cpu=same_bits((k1, plain)), previous=same_bits((prev, plain)))
         err = max(err, float((k1.cpu() - plain).abs().max()) if k1.numel() else 0.0)
         v = values.contiguous()
         # the atomic sum into n + 1 rows: the chain's sums have a dump slot
-        k_ms, lib_ms = in_turns(lambda: ss.segment_sum(v, seg),
-                                lambda: v.new_zeros((n + 1,) + v.shape[1:]).index_add_(0, seg.index, v), v, 20)
+        k_ms, prev_ms, lib_ms = turns([lambda: ss.segment_sum(v, seg), lambda: ss._segment_sum_previous(v, seg),
+                                       lambda: v.new_zeros((n + 1,) + v.shape[1:]).index_add_(0, seg.index, v)], v)
         plain_ms = graph_ms(lambda: ss.segment_sum_reference(v, seg), v, 20)
         nbytes = (E * C + n * C) * v.element_size() + E * 4 + (n + 1) * 4
         bound_ms = nbytes / 3.35e12 * 1e3
-        longest = int((seg.offsets[1:] - seg.offsets[:-1]).max()) if n else 0
-        say("slice5", f"(e) segment_sum on {path}'s {E} rows x {C} into {n} segments (longest {longest}): kernel "
-            f"{k_ms:.6f} ms, atomic index_add_ {lib_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
-            f"({nbytes} B, {100.0 * bound_ms / k_ms:.1f}% of it); equal to the CPU's index_add_ bit for bit {cpu_equal}, "
-            f"two launches bit-equal {twice}")
-        check(twice and cpu_equal, f"the segment-sum kernel differs from its plain version on {path}'s {E} x {C} sum")
-        rows.append(dict(path=path, rows=E, columns=C, segments=n, longest=longest, ms=k_ms, library_ms=lib_ms,
+        lengths = seg.offsets[1:] - seg.offsets[:-1]
+        lay = ss.layout(E, n, C, v.element_size())
+        threshold, n_long = long_segments(seg, lay)
+        longest = int(lengths.max()) if n else 0
+        say("slice5", f"(e) segment_sum on {path}'s {E} rows x {C} {str(v.dtype)[6:]} into {n} segments (longest "
+            f"{longest}; {lay.long_blocks} long + {lay.short_blocks} short blocks, {n_long} segments long from "
+            f"{threshold} rows, {lay.outputs_per_thread} output(s) a thread, {lay.rows_per_chunk} rows a chunk, "
+            f"{lay.copy_bytes}-byte copies): kernel {k_ms:.6f} ms, previous design {prev_ms:.6f} ms "
+            f"({k_ms / prev_ms:.3f}x), atomic index_add_ {lib_ms:.6f} ms ({k_ms / lib_ms:.3f}x), plain "
+            f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} B, {100.0 * bound_ms / k_ms:.1f}% of it); "
+            f"the path's launches {launches[key]}; equal to the CPU's index_add_ bit for bit {equal}")
+        check(all(equal.values()), f"the segment-sum kernel differs from its plain version on {path}'s {E} x {C} sum")
+        rows.append(dict(path=path, launches=launches[key], rows=E, columns=C, segments=n, longest=longest,
+                         long_segments=n_long, ms=k_ms, previous_ms=prev_ms, library_ms=lib_ms,
                          plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes))
+    for path in ("line extraction", "Schur (as float64)"):  # the first sum of each
+        values, seg = next(c for p, _, c in recorded if p == path)
+        captured = index_in_graph(seg.index, values, seg.n)
+        say("slice5", f"(e) {path}'s index built and summed inside a CUDA graph capture: {captured}")
+        check(all(captured.values()), f"an index built inside a CUDA graph capture sums otherwise ({path})")
     top = max(rows, key=lambda r: r["nbytes"])
-    say("slice5", f"(e) {len(rows)} distinct sums, every one bit-equal to the CPU; the row's call: {top['path']}'s "
-        f"{top['rows']} x {top['columns']} into {top['segments']}")
+    slower = [r for r in rows if r["ms"] > 1.05 * r["previous_ms"]]
+    say("slice5", f"(e) {len(rows)} distinct sums, every one bit-equal to the CPU in both designs; "
+        f"{len(slower)} more than 5% slower than the previous design "
+        f"{[(r['path'], r['rows'], r['columns'], round(r['ms'] / r['previous_ms'], 3)) for r in slower]}; the row's "
+        f"call: {top['path']}'s {top['rows']} x {top['columns']} into {top['segments']}; (e) took "
+        f"{time.perf_counter() - t0:.1f} s")
     return dict(err=err, top=top, calls=rows)
 
 
@@ -2691,11 +2800,11 @@ def run(out_dir):
     kernels.append({
         "name": "segment_sum", "route": "cuda", "source": "g2o_frontend_tpu_torch/csrc/segment_sum.cu",
         "replaces": "jax.ops.segment_sum (XLA, no pl.pallas_call)", "launches": paths["line_slam"],
-        "max_abs_err": sums["err"], "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-        "bound_by": "bytes", "library_ms": top["library_ms"], "launches_paths": paths,
-        "call": {k: top[k] for k in ("path", "rows", "columns", "segments", "longest")},
-        "calls": [{k: r[k] for k in ("path", "rows", "columns", "segments", "longest", "ms", "library_ms", "bound_ms")}
-                  for r in sums["calls"]],
+        "max_abs_err": sums["err"], "ms": top["ms"], "previous_ms": top["previous_ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": top["library_ms"], "launches_paths": paths,
+        "call": {k: top[k] for k in ("path", "launches", "rows", "columns", "segments", "longest")},
+        "calls": [{k: r[k] for k in ("path", "launches", "rows", "columns", "segments", "longest", "long_segments",
+                                     "ms", "previous_ms", "library_ms", "bound_ms")} for r in sums["calls"]],
     })
     check(all(n > 0 for n in paths.values()), f"a solver path did not launch the segment-sum kernel: {paths}")
     for k in kernels:
