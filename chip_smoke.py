@@ -21,31 +21,43 @@ Phases, one line each or more, any failure exits non-zero:
   3. kernel 1 (one aligner system) against its plain PyTorch version on the
      640x480 bench pair at three poses (identity, ground truth, a 5 cm /
      3 deg perturbation), and once more with the non-robust chi2 gate;
-  4. align at 640x480 with the default configs: t_err gate, launch count,
-     median convert/align times by CUDA events, device times of align and
-     convert (torch.profiler) and of the kernel and its plain version;
+  4. align at 640x480 with the default configs: t_err gate, launch count;
+     depth_to_cloud's and align's CUDA graphs (utils/graphs.py, all three
+     associations) bit-equal to their eager bodies, and timed against them
+     in turns by CUDA events around whole calls, with device times
+     (torch.profiler) and the device's idle share; the kernel and its
+     plain version;
   5. the tracker command line over the bundled 120-frame TUM sequence at
-     scale 2 (ATE gate, per-frame and --scan modes) and, as slice 1's
-     main-path run whose kernel launches are counted, at scale 1 (640x480);
+     scale 2 (ATE gate, per-frame and --scan modes), odometry_scan's graphs
+     bit-equal to its eager bodies on the --scan inputs, and, as slice 1's
+     main-path run whose kernel launches are counted, at scale 1 (640x480),
+     its trajectory and per-frame figures bit-equal to a rerun with the
+     tracker's stages eager (its keyframe map is phase 9's);
   6. kernel 2 (K candidate systems, the tiled design) at 640x480, K = 8
      reference clouds rendered around the identity against one current
      cloud: against its plain version, against 8 kernel-1 calls and against
      the previous batch design, two launches bit-equal, and timed in turns
      with the previous design;
   7. align_batch at 640x480, K = 8, against 8 serial align calls: T, inliers,
-     launch counts, and the times of both;
+     launch counts, and the times of both; its graph bit-equal to its eager
+     body and timed against it in turns;
   8. kernel 3 (the z-buffer linearizer) against its plain version on the
      z-buffer association of the bench pair, then align with
      association="zbuffer" at 640x480 (t_err gate, its launches counted);
   9. PWN SLAM at 640x480 over the bundled sequence (the app's own closer
      radius), then slice 2's main-path run: the loop closer with a 1 m
-     radius over that map's keyframes and the hierarchical pose-graph
-     solve, whose kernel-2 launches are counted; kernel 2 against its plain
-     version on the inputs of every one of those launches (two launches
-     bit-equal), timed in turns with the previous batch design at each K of
-     the run; and the app's synthetic 40-frame orbit;
+     radius over phase 5's scale-1 keyframe map and the hierarchical
+     pose-graph solve, whose kernel-2 launches are counted; every
+     align_batch call of the closer recorded and run again on the eager
+     body, bit-equal to the graph, recording the inputs of each kernel-2
+     launch; kernel 2 against its plain version on the inputs of every one
+     of those launches (two launches bit-equal), timed in turns with the
+     previous batch design at each K of the run; align_batch's graph
+     against its eager body at the largest K; and the app's synthetic
+     40-frame orbit;
  10. the gather probes of apps/profile_gather.py: the TPU script's four
-     probes at its shapes, each kernel bit-equal to its plain version (NaN in
+     probes at its shapes beside the launch floor (a one-element add_ timed
+     as they are), each kernel bit-equal to its plain version (NaN in
      the same places), with in-range indices and with wrapped and
      out-of-range ones; the flat gather at 640x480 over the bench pair's
      reference table (identity, projective, random) and, projective, over
@@ -140,7 +152,8 @@ Phases, one line each or more, any failure exits non-zero:
      and the operations of one CG iteration;
  16. the system's own entry points (kernels 1 and 2 on their paths, each
      path's launches counted from 0): (a) `entry.entry()` on the card
-     against the CPU, the whole step and the align on the card's clouds,
+     against its stages' eager bodies (bit for bit) and against the CPU,
+     the whole step and the align on the card's clouds,
      entry() and depth_to_cloud on the 640x480 bench image each twice, bit
      for bit the same, and `entry.dryrun_multichip(8)` with its asserts; (b) the bench
      (`apps/bench.run(["--no-cpu-control"])`, its JSON line and asserts:
@@ -155,8 +168,10 @@ Phases, one line each or more, any failure exits non-zero:
      evictions, keyframe ATE <= 1.25x and < 0.5 m), then with it.
 Every kernel's device time, and its plain version's, is the slope of CUDA
 graph replays timed by CUDA events (utils/profiling.graph_ms), in the phase
-that checks the kernel. Then one JSON line of the kernels, the card's name
-and power limit, and a last JSON line with the device.
+that checks the kernel. Each key a stage captures gets a line (capture ms,
+pool bytes), each phase its seconds. Then the graph-against-eager summary,
+one JSON line of the kernels, the card's name and power limit, and a last
+JSON line with the device.
 """
 import concurrent.futures
 import dataclasses
@@ -298,15 +313,20 @@ def phase_kernel1(ctx):
 
 
 def phase_align(ctx):
-    """Phase 4: align at 640x480 and the times of kernel 1."""
+    """Phase 4: align at 640x480 and the times of kernel 1; depth_to_cloud's
+    and align's graphs bit-equal to their eager bodies, and timed against
+    them in turns."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn import aligner as al
+    from g2o_frontend_tpu_torch.pwn import converter as cv
     from g2o_frontend_tpu_torch.pwn.aligner import align
     from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
     from g2o_frontend_tpu_torch.apps.profile_gather import system_bytes
-    from g2o_frontend_tpu_torch.utils.profiling import bound, device_ms, event_ms, graph_ms
+    from g2o_frontend_tpu_torch.utils.profiling import bound, device_ms, graph_ms
+    from tools.graph_probe import same_bits as same_tree
 
     acfg, proj, ref, cur = ctx["acfg"], ctx["proj"], ctx["ref"], ctx["cur"]
     before = fa.launches
@@ -326,9 +346,20 @@ def phase_align(ctx):
         check(fa.launches - before == per_align and torch.equal(other.T, res.T),
               f"association={association!r} did not run the same kernel path")
     say("align", f"association 'fused' and 'gather' launch the kernel {per_align} times and give the same T")
+    # each graph against its eager body on the same inputs, bit for bit
     d_cur, ccfg = ctx["d_cur"], ctx["ccfg"]
-    conv_ms = float(np.median(event_ms(lambda: depth_to_cloud(d_cur, proj, ccfg), 30)))
-    align_ms = float(np.median(event_ms(lambda: align(ref, cur, proj, config=acfg), 30)))
+    check(same_tree(depth_to_cloud(d_cur, proj, ccfg), cv._depth_to_cloud(d_cur, proj, ccfg, None)),
+          "depth_to_cloud's graph differs from its eager body")
+    for association in ("auto", "gather", "zbuffer"):
+        cfg = dataclasses.replace(acfg, association=association)
+        check(same_tree(align(ref, cur, proj, config=cfg), al._align(ref, cur, proj, None, cfg, None)),
+              f"align's graph (association {association!r}) differs from its eager body")
+    say("graphs", "depth_to_cloud and align (associations 'auto', 'gather', 'zbuffer') on the bench pair: each "
+        "graph's outputs bit-equal to its eager body's")
+    graph_turns(ctx, f"depth_to_cloud {proj.rows}x{proj.cols}", lambda: depth_to_cloud(d_cur, proj, ccfg),
+                lambda: cv._depth_to_cloud(d_cur, proj, ccfg, None), 30)
+    graph_turns(ctx, f"align {proj.rows}x{proj.cols}", lambda: align(ref, cur, proj, config=acfg),
+                lambda: al._align(ref, cur, proj, None, acfg, None), 30)
     params = fa.params_from_invT(torch.as_tensor(ctx["inv_gt"], dtype=torch.float32, device=ctx["device"]))
 
     def kernel():
@@ -337,23 +368,33 @@ def phase_align(ctx):
     def plain():
         return fa.fused_system_reference(ctx["cur_packed"], ctx["ref_table"], params, proj, acfg)
 
-    say("timing", f"CUDA events, median over 30 runs: depth_to_cloud {conv_ms:.3f} ms, align {align_ms:.3f} ms")
     kernel_ms, plain_ms = graph_ms(kernel, params, 50), graph_ms(plain, params, 20)
     say("timing", f"one system at 640x480, device ms per call by CUDA graph replays: kernel {kernel_ms:.6f}, plain "
-        f"{plain_ms:.6f}; by torch.profiler: kernel {device_ms(kernel, 50):.6f}, "
-        f"align {device_ms(lambda: align(ref, cur, proj, config=acfg), 10):.4f}, "
-        f"depth_to_cloud {device_ms(lambda: depth_to_cloud(d_cur, proj, ccfg), 10):.4f}")
+        f"{plain_ms:.6f}; by torch.profiler: kernel {device_ms(kernel, 50):.6f}")
+    ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
     n_bytes = system_bytes(ctx["cur_packed"], params, proj, fa.N_SUMS)
     return kernel_ms, plain_ms, bound(n_bytes, proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM)
 
 
-def phase_tracker(out_dir, per_align):
-    """Phase 5: the tracker command line; returns the main-path launches."""
+def phase_tracker(ctx, out_dir):
+    """Phase 5: the tracker command line; returns the main-path launches.
+    The --scan inputs at scale 2 through odometry_scan's graphs and through
+    its eager bodies, bit for bit; the scale-1 run's trajectory and
+    per-frame figures against a rerun with the tracker's stages eager, bit
+    for bit. Keeps the scale-1 tracker (its keyframe map) in
+    ctx["tracker_s1"] for phase 9."""
     import numpy as np
+    import torch
 
     from g2o_frontend_tpu_torch.apps import pwn_odometry
+    from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn import aligner as al
+    from g2o_frontend_tpu_torch.pwn import converter as cv
+    from g2o_frontend_tpu_torch.slam import pwn_tracker as pt
+    from tools.graph_probe import eager_scan, same_bits as same_tree
 
+    per_align = ctx["per_align"]
     s2 = pwn_odometry.run([SEQ, "--device", "cuda", "--scale", "2", "--kf-fraction", "0.75",
                            "--out", os.path.join(out_dir, "traj_s2.txt")])
     ate2 = s2["ate"]["rmse"]
@@ -366,15 +407,65 @@ def phase_tracker(out_dir, per_align):
         f"keyframes {sc['keyframes']}/{sc['frames']}; {sc['frames_per_s']:.2f} frames/s")
     check(sc["frames"] == 120 and sc["ate"]["rmse"] < 0.5, f"scan ATE {sc['ate']['rmse']} >= 0.5 m")
 
+    # --scan's inputs through the graphs and through the eager bodies
+    proj2, ccfg2, acfg2 = pwn_odometry.configs(2, "kinect")
+    raw = np.stack([tum.load_depth_png_raw(os.path.join(SEQ, rel))[::2, ::2] for _, rel in tum.read_depth_index(SEQ)])
+    depths = pt._depth_batch(raw, ctx["device"], 1.0 / 5000.0)
+    min_inliers = max(50, int(3000 * (proj2.rows * proj2.cols) / (480 * 640)))
+    scan_args = (proj2, ccfg2, acfg2, 0.75, min_inliers)
+    graphed, g_ms = timed(lambda: pt.odometry_scan(depths, *scan_args[:3], kf_fraction=0.75,
+                                                   min_cloud_inliers=min_inliers, device=ctx["device"]))
+    eager, e_ms = timed(lambda: eager_scan(depths, *scan_args))
+    check(same_tree(graphed, eager), "odometry_scan's graphs differ from its eager bodies on the --scan inputs")
+    say("graphs", f"odometry_scan over the 120 frames at scale 2: trajectory and metrics bit-equal to the eager "
+        f"bodies'; {len(depths) / g_ms * 1e3:.2f} frames/s by the graphs, {len(depths) / e_ms * 1e3:.2f} eager "
+        "(CUDA events around the call)")
+
+    def scale1(tag):
+        """The scale-1 command line; (its result, its tracker)."""
+        made = []
+
+        class Kept(pt.PwnTracker):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        pwn_odometry.PwnTracker = Kept
+        try:
+            r = pwn_odometry.run([SEQ, "--device", "cuda", "--scale", "1", "--kf-fraction", "0.75",
+                                  "--out", os.path.join(out_dir, f"traj_s1{tag}.txt")])
+        finally:
+            pwn_odometry.PwnTracker = pt.PwnTracker
+        return r, made[0]
+
     fa.launches = 0  # slice 1's main-path run: count the kernel launches of this run only
-    s1 = pwn_odometry.run([SEQ, "--device", "cuda", "--scale", "1", "--kf-fraction", "0.75",
-                           "--out", os.path.join(out_dir, "traj_s1.txt")])
+    s1, tracker = scale1("")
     main_launches = fa.launches
     ate1 = s1["ate"]["rmse"]
     say("tracker", f"scale 1 (640x480): ATE {ate1:.4f} m; keyframes {s1['keyframes']}/{s1['frames']}; "
         f"{s1['frames_per_s']:.2f} frames/s; kernel launches {main_launches}")
     check(s1["frames"] == 120 and np.isfinite(ate1), "scale-1 run incomplete")
     check(main_launches == per_align * (s1["frames"] - 1), f"main path launched the kernel {main_launches} times")
+    ctx["tracker_s1"] = tracker
+
+    # the same run with the tracker's stages eager
+    pt.depth_to_cloud = lambda depth, proj, config=cv.ConverterConfig(), sensor_offset=None: cv._depth_to_cloud(
+        depth, proj, config, sensor_offset)
+    pt.align = lambda ref, cur, proj, guess=None, config=al.AlignerConfig(), priors=None: al._align(
+        ref, cur, proj, guess, config, priors)
+    try:
+        e1, eager_tracker = scale1("_eager")
+    finally:
+        pt.depth_to_cloud, pt.align = cv.depth_to_cloud, al.align
+    same = same_bits((tracker.trajectory_array(), eager_tracker.trajectory_array())) and all(
+        m == n for m, n in zip(tracker.metrics, eager_tracker.metrics))
+    say("graphs", f"scale 1 (640x480): trajectory and per-frame inliers, fractions, keyframes and chi2 bit-equal to "
+        f"a run with the stages eager: {same}; {s1['frames_per_s']:.2f} frames/s by the graphs, "
+        f"{e1['frames_per_s']:.2f} eager")
+    check(same, "the scale-1 tracker's graphs differ from its eager stages")
+    ctx["tracker_fps"] = dict(scale2=s2["frames_per_s"], scan=sc["frames_per_s"], scale1=s1["frames_per_s"],
+                              scale1_eager=e1["frames_per_s"])
+    ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
     return main_launches
 
 
@@ -443,12 +534,15 @@ def phase_kernel2(ctx):
 
 
 def phase_align_batch(ctx):
-    """Phase 7: align_batch at K = 8 against K serial align calls."""
+    """Phase 7: align_batch at K = 8 against K serial align calls, and its
+    graph against its eager body (bit for bit, and timed in turns)."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn import aligner as al
     from g2o_frontend_tpu_torch.pwn.aligner import align, align_batch
+    from tools.graph_probe import same_bits as same_tree
     from g2o_frontend_tpu_torch.utils.profiling import device_ms, event_ms
     from g2o_frontend_tpu_torch.utils.synth import K_CANDIDATES
 
@@ -480,8 +574,16 @@ def phase_align_batch(ctx):
 
     ev_b, ev_s = float(np.median(event_ms(batched, 10))), float(np.median(event_ms(one_by_one, 10)))
     dev_b, dev_s = device_ms(batched, 5), device_ms(one_by_one, 5)
-    say("timing", f"align_batch K={K_CANDIDATES} vs {K_CANDIDATES} serial align: CUDA events median of 10 "
-        f"{ev_b:.3f} ms vs {ev_s:.3f} ms; device time (torch.profiler) {dev_b:.4f} ms vs {dev_s:.4f} ms")
+    say("timing", f"align_batch K={K_CANDIDATES} vs {K_CANDIDATES} serial align (each by its graph): CUDA events "
+        f"median of 10 {ev_b:.3f} ms vs {ev_s:.3f} ms; device time (torch.profiler) {dev_b:.4f} ms vs {dev_s:.4f} ms")
+
+    def eager():
+        return al._align_batch(ctx["refs"], cur, proj, guesses, acfg)
+
+    check(same_tree(rb, eager()), "align_batch's graph differs from its eager body")
+    say("graphs", f"align_batch at K={K_CANDIDATES}: the graph's outputs bit-equal to its eager body's")
+    graph_turns(ctx, f"align_batch K={K_CANDIDATES} {proj.rows}x{proj.cols}", batched, eager, 10)
+    ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
 
 
 def phase_kernel3(ctx):
@@ -559,8 +661,11 @@ def phase_slam(ctx, out_dir):
     max abs error against the plain version over every call of that run,
     and at the run's largest batch its time and the previous batch
     design's (in turns), its plain version's time and its bound. Also
-    times the two designs in turns at every other K of the run. Keeps the
-    largest batch's inputs in ctx["k_max"] for phase 10."""
+    times the two designs in turns at every other K of the run. The
+    closer's map is phase 5's scale-1 run; its align_batch calls replay
+    graphs, so each call is recorded and run again on the eager body (bit
+    for bit the graph's outputs), which records every kernel-2 launch's
+    inputs. Keeps the largest batch's inputs in ctx["k_max"] for phase 10."""
     import numpy as np
     import torch
 
@@ -569,10 +674,12 @@ def phase_slam(ctx, out_dir):
     from g2o_frontend_tpu_torch.graph.reflector import MapReflector
     from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn import aligner as al
+    from g2o_frontend_tpu_torch.slam import pwn_matcher
     from g2o_frontend_tpu_torch.slam.map_closer import CloserConfig, MapCloser
     from g2o_frontend_tpu_torch.slam.map_merger import MapMerger
-    from g2o_frontend_tpu_torch.slam.pwn_tracker import PwnTracker, PwnTrackerConfig
     from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms, in_turns
+    from tools.graph_probe import same_bits as same_tree
 
     device = ctx["device"]
     fa.launches, fa.batch_launches = 0, 0
@@ -588,33 +695,34 @@ def phase_slam(ctx, out_dir):
 
     # slice 2's main path: loop closing over the 640x480 keyframe map with a
     # 1 m candidate radius, the closer's frame gates scaled from the JAX
-    # synthetic mode's 96x128 values to the image area
+    # synthetic mode's 96x128 values to the image area. The map is phase
+    # 5's scale-1 run (the tracker at new_frame_inliers_fraction 0.75).
     proj, ccfg, acfg = pwn_odometry.configs(1, "kinect")
     area = proj.rows * proj.cols / (96 * 128)
     cfg = CloserConfig(translational_distance=1.0, consensus_min_times_checked=1,
                        frame_min_nonzero_threshold=int(2000 * area), frame_max_outliers_threshold=int(6000 * area),
                        frame_min_inliers_threshold=int(2000 * area))
-    index = tum.read_depth_index(SEQ)
-    timestamps = [ts for ts, _ in index]
-    tracker = PwnTracker(proj, ccfg, acfg, PwnTrackerConfig(new_frame_inliers_fraction=0.75), device=device)
-    for _, rel in index:
-        tracker.process_frame(tum.load_depth_png(os.path.join(SEQ, rel)))
+    timestamps = [ts for ts, _ in tum.read_depth_index(SEQ)]
+    tracker = ctx["tracker_s1"]
+    check(tracker.cfg.new_frame_inliers_fraction == 0.75 and (tracker.projector, tracker.ccfg, tracker.acfg)
+          == (proj, ccfg, acfg) and tracker.frame_count == len(timestamps), "phase 5's tracker is not the map's run")
     mgr = tracker.manager
     nodes = list(mgr.nodes)
     ate_before = keyframe_ate(nodes, timestamps)
     closer = MapCloser(mgr, tracker.cache, proj, acfg, cfg)
     merger = MapMerger(mgr, list_size=5)
     reflector = MapReflector(mgr, device=device)
-    # keep the inputs of every kernel-2 call of this run, to hold the kernel
-    # against its plain version at the shapes the closer gives it (the
-    # tables of one batch are one tensor, shared by its calls)
-    calls, batch_kernel = [], fa.fused_system_batch
+    # keep the inputs and outputs of every align_batch call of this run (its
+    # graph replays kernel 2); the calls are run again below on the eager
+    # body, which records the inputs of each kernel-2 launch
+    batch_calls, graphed = [], pwn_matcher.align_batch
 
-    def recording(cur_packed, ref_tables, params, projector, acfg_):
-        calls.append((cur_packed, ref_tables, params, projector, acfg_))
-        return batch_kernel(cur_packed, ref_tables, params, projector, acfg_)
+    def recording(references, current, projector, initial_guesses, config):
+        out = graphed(references, current, projector, initial_guesses, config)
+        batch_calls.append(((references, current, projector, initial_guesses, config), out))
+        return out
 
-    fa.fused_system_batch = recording
+    pwn_matcher.align_batch = recording
     fa.batch_launches, before1 = 0, fa.launches
     t0 = time.perf_counter()
     committed = 0
@@ -623,7 +731,7 @@ def phase_slam(ctx, out_dir):
             committed += len(closer.process_key_node(node))
             merger.process_key_node(node)
     finally:
-        fa.fused_system_batch = batch_kernel
+        pwn_matcher.align_batch = graphed
     t_close = time.perf_counter() - t0
     chi2, cg = reflector.optimize_hierarchical(iters=10, cg_iters=60)
     t_opt = time.perf_counter() - t0 - t_close
@@ -639,7 +747,32 @@ def phase_slam(ctx, out_dir):
           f"kernel-2 launches {launches} for {len(batches)} batches")
     check(committed >= 1, "no closure committed")
     check(np.isfinite(chi2), "non-finite chi2 after the hierarchical solve")
+    check(len(batch_calls) == len(batches), f"{len(batch_calls)} align_batch calls recorded for {len(batches)} batches")
+
+    # every recorded call again on align_batch's eager body: its outputs
+    # bit-equal to the graph's, and the inputs of each of its kernel-2
+    # launches recorded (the graph launched the same kernels on the same
+    # inputs, or the outputs would differ)
+    calls, batch_kernel = [], fa.fused_system_batch
+
+    def recording_kernel(cur_packed, ref_tables, params, projector, acfg_):
+        calls.append((cur_packed, ref_tables, params, projector, acfg_))
+        return batch_kernel(cur_packed, ref_tables, params, projector, acfg_)
+
+    fa.fused_system_batch = recording_kernel
+    try:
+        for b, (args, out) in enumerate(batch_calls):
+            check(same_tree(al._align_batch(*args), out),
+                  f"closer batch {b}: align_batch's graph differs from its eager body")
+    finally:
+        fa.fused_system_batch = batch_kernel
+    say("graphs", f"the closer's {len(batch_calls)} align_batch calls (K {batches}) again on the eager body: "
+        f"every output bit-equal to the graph's; {len(calls)} kernel-2 launches recorded")
     check(len(calls) == launches, f"{len(calls)} kernel-2 calls recorded, {launches} launches counted")
+    args = max(batch_calls, key=lambda c: c[0][0].p.shape[0])[0]
+    graph_turns(ctx, f"align_batch K={args[0].p.shape[0]} {proj.rows}x{proj.cols} (the closer's largest batch)",
+                lambda: al.align_batch(*args), lambda: al._align_batch(*args), 10)
+    ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
 
     # kernel 2 against its plain version on every call of the closer's run,
     # one line for each batch (its calls share one tables tensor); each
@@ -715,6 +848,7 @@ def phase_gather(ctx):
     from g2o_frontend_tpu_torch.apps import profile_gather as pg
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.ops import gather_probe as gp
+    from g2o_frontend_tpu_torch.utils.profiling import graph_ms
 
     def counted(g):
         """Drive g's path once; its launches and the max abs error of its
@@ -731,11 +865,21 @@ def phase_gather(ctx):
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
                 "library_ms": m["library_ms"]}
 
+    # the launch floor of rows 4-7: a one-element add_ timed as they are
+    # (graph_ms, 50 and 12 calls a graph), before and after them
+    one = torch.zeros(1, device=ctx["device"])
+    floor = [graph_ms(lambda: one.add_(1), one, 50)]
     entries = []
     names = ("take_along_lanes_8x128", "take_along_lanes_8x1024", "take_along_sublanes_1024x128",
              "flat_gather_64x128")
     for name, g in zip(names, pg.tpu_probes(ctx["device"])):
         entries.append(entry(name, g, *counted(g), pg.measure(g, n=50)))
+    floor.append(graph_ms(lambda: one.add_(1), one, 50))
+    say("timing", f"launch floor of the probes: a one-element add_, device ms per call by CUDA graph replays at their "
+        f"call counts, before and after them: {floor[0]:.6f}, {floor[1]:.6f}; the probes "
+        + ", ".join(f"{e['name']} {e['ms']:.6f} ({e['ms'] / min(floor):.2f}x)" for e in entries))
+    for e in entries:
+        e["launch_floor_ms"] = min(floor)
     for g in pg.out_of_range_probes(ctx["device"]):
         counted(g)
     params = fa.params_from_invT(torch.as_tensor(ctx["inv_gt"], dtype=torch.float32, device=ctx["device"]))
@@ -783,6 +927,38 @@ def timed(fn):
     e1.record()
     e1.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+def report_captures(phase, since):
+    """One line for each key captured since the `since`-th (utils/graphs):
+    its stage, tensor shapes, capture ms, the bytes it added to the shared
+    pool and its static inputs. Returns the number of keys so far."""
+    from g2o_frontend_tpu_torch.utils import graphs
+
+    caps = graphs.captures()
+    for c in caps[since:]:
+        shapes = ", ".join("x".join(map(str, sh)) or "()" for sh in c.shapes[:3]) + (", ..." if len(c.shapes) > 3
+                                                                                    else "")
+        say(phase, f"captured {c.stage} ({len(c.shapes)} tensors: {shapes}) in {c.capture_ms:.1f} ms; pool "
+            f"+{c.pool_bytes} B, static inputs {c.input_bytes} B; launches a replay {c.launches}")
+    return len(caps)
+
+
+def graph_turns(ctx, name, graphed, eager, n):
+    """A stage's graph against its eager body in turns (tools/graph_probe.
+    turns): one timing line, the row kept in ctx["stage_ms"]."""
+    from tools.graph_probe import turns
+
+    row = turns(name, graphed, eager, n)
+    gdev = "not measured" if row["graph_device_ms"] is None else f"{row['graph_device_ms']:.4f} ms"
+    say("timing", f"{name}, whole calls by CUDA events, median of {n}, in turns (eager, graph, graph, eager): graph "
+        f"{row['graph_ms']:.4f} ms ({row['graph_runs_ms'][0]:.4f}, {row['graph_runs_ms'][1]:.4f}), eager "
+        f"{row['eager_ms']:.4f} ms ({row['eager_runs_ms'][0]:.4f}, {row['eager_runs_ms'][1]:.4f}), "
+        f"{row['speedup']:.2f}x; device time (torch.profiler) graph {gdev}, eager {row['eager_device_ms']:.4f} ms; "
+        f"device idle {100 * row['graph_idle_share']:.1f}% of a replayed call, {100 * row['eager_idle_share']:.1f}% "
+        f"of an eager one")
+    ctx.setdefault("stage_ms", []).append(row)
+    return row
 
 
 def close(a, b, rtol=1e-5):
@@ -2637,6 +2813,8 @@ def phase_entry_points(ctx, out_dir):
     from g2o_frontend_tpu_torch import entry
     from g2o_frontend_tpu_torch.apps import bench, evaluate
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.pwn import aligner as al
+    from g2o_frontend_tpu_torch.pwn import converter as cv
     from g2o_frontend_tpu_torch.pwn.aligner import align
     from g2o_frontend_tpu_torch.pwn.converter import depth_to_cloud
 
@@ -2658,6 +2836,10 @@ def phase_entry_points(ctx, out_dir):
     say("entry", f"(a) entry() a second time on the card: T, omega and inliers bit-equal {same_step}; depth_to_cloud "
         f"twice on the 640x480 bench image: every channel bit-equal {same_cloud}")
     check(same_step and same_cloud, "two card runs of entry() or depth_to_cloud differ")
+    eager = al._align(*(cv._depth_to_cloud(d, proj, ccfg, None) for d in args), proj, None, acfg, None)
+    same_eager = same_bits(*zip(card, (eager.T, eager.omega, eager.inliers)))
+    say("graphs", f"(a) entry()'s T, omega and inliers bit-equal to its stages' eager bodies: {same_eager}")
+    check(same_eager, "entry()'s graphs differ from the eager bodies")
     entry_close("the whole step against the CPU", card, fn(*(a.cpu() for a in args)), ENTRY_STEP_TOL)
     ref, cur = (depth_to_cloud(d, proj, ccfg) for d in args)
     res = align(ref, cur, proj, config=acfg)
@@ -2680,6 +2862,8 @@ def phase_entry_points(ctx, out_dir):
         f"the CPU's aligner {cpu_bench['align_fps']:.4f} frames/s, convert {cpu_bench['convert_fps']:.4f} frames/s "
         f"({cpu_s:.1f} s, {torch.get_num_threads()} threads): vs_baseline {out['value'] / cpu_bench['align_fps']:.3f}")
     check(bench_launches[0] > 0, "the bench did not launch kernel 1")
+    ctx["bench"] = {k: out[k] for k in ("value", "convert_fps", "tracker_fps_e2e", "align_fps_scale4")}
+    ctx["captures"] = report_captures("bench", ctx.get("captures", 0))
 
     # (c) the evaluation protocols at full size
     def section(name, fn_):
@@ -2709,6 +2893,8 @@ def phase_entry_points(ctx, out_dir):
         stress[cache]["launches"] = (fa.launches, fa.batch_launches)
         say("eval", f"(c) stress run, cloud cache {cache}: {stress[cache]['frames'] / stress[cache]['wall_s']:.2f} "
             f"frames/s; kernel-1 launches {fa.launches}, kernel-2 launches {fa.batch_launches}")
+        ctx.setdefault("stress_fps", []).append(stress[cache]["frames"] / stress[cache]["wall_s"])
+    ctx["captures"] = report_captures("eval", ctx.get("captures", 0))
     r, j = stress[False], JAX_STRESS
     say("eval", f"(c) the no-cache stress run against the JAX CPU run: keyframes {r['keyframes']} vs {j['keyframes']} "
         f"(limit +-15%), closures {r['closures_committed']} vs {j['closures_committed']} (limit >= 0.8x), fallbacks "
@@ -2736,6 +2922,7 @@ def run(out_dir):
     from g2o_frontend_tpu_torch.utils.synth import bench_pair
 
     # 1. device
+    t_start = time.perf_counter()
     smi = gpu_name_and_power_limit()
     print(smi, flush=True)
     say("device", f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; CUDA {torch.version.cuda}")
@@ -2751,15 +2938,22 @@ def run(out_dir):
                inv_gt=np.linalg.inv(T_gt), cur_packed=fa.pack_cur(cur), ref_table=fa.pack_ref(ref),
                per_align=acfg.outer_iterations * acfg.inner_iterations + 1)
 
-    err1 = phase_kernel1(ctx)  # 3
-    k1_ms, k1_plain_ms, k1_bound = phase_align(ctx)  # 4
-    k1_launches = phase_tracker(out_dir, ctx["per_align"])  # 5
+    def phase(n, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say("time", f"phase {n} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    say("time", f"phases 1-2 took {time.perf_counter() - t_start:.1f} s")
+    err1 = phase(3, phase_kernel1, ctx)
+    k1_ms, k1_plain_ms, k1_bound = phase(4, phase_align, ctx)
+    k1_launches = phase(5, phase_tracker, ctx, out_dir)
     ctx["refs"], ctx["ref_list"], ctx["T_true"], ctx["poses"] = candidates(ctx)
-    phase_kernel2(ctx)  # 6
-    phase_align_batch(ctx)  # 7
-    err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase_kernel3(ctx)  # 8
-    k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase_slam(ctx, out_dir)  # 9
-    gather_entries = phase_gather(ctx)  # 10
+    phase(6, phase_kernel2, ctx)
+    phase(7, phase_align_batch, ctx)
+    err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase(8, phase_kernel3, ctx)
+    k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase(9, phase_slam, ctx, out_dir)
+    gather_entries = phase(10, phase_gather, ctx)
     t11 = time.perf_counter()  # 11
     phase_conf_apps(ctx, out_dir)
     phase_fusion(ctx)
@@ -2768,14 +2962,19 @@ def run(out_dir):
     phase_cloud_io(ctx, out_dir)
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
     try:
-        phase_backend(ctx, out_dir)  # 12
-        phase_slam2d(ctx, out_dir)  # 13
-        phase_slice5(ctx, out_dir)  # 14
+        phase(12, phase_backend, ctx, out_dir)
+        phase(13, phase_slam2d, ctx, out_dir)
+        phase(14, phase_slice5, ctx, out_dir)
     finally:  # the CPU worker of phases 12 and 14
         if "cpu_pool" in ctx:
             ctx.pop("cpu_pool").terminate()
-    phase_parallel(ctx, out_dir)  # 15
-    paths16 = phase_entry_points(ctx, out_dir)  # 16
+    phase(15, phase_parallel, ctx, out_dir)
+    paths16 = phase(16, phase_entry_points, ctx, out_dir)
+    say("graphs", "graph against eager, whole calls at 640x480 (ms): " + "; ".join(
+        f"{r['stage']} {r['graph_ms']:.4f} vs {r['eager_ms']:.4f} ({r['speedup']:.2f}x, device idle "
+        f"{100 * r['graph_idle_share']:.1f}% of a replay)" for r in ctx["stage_ms"]))
+    say("graphs", f"bench {json.dumps(ctx['bench'])}; tracker frames/s {json.dumps(ctx['tracker_fps'])}; stress run "
+        f"frames/s (no cache, cache) {ctx['stress_fps']}; {ctx['captures']} keys captured")
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

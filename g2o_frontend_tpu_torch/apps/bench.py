@@ -19,7 +19,9 @@ Python's garbage collector stays on, as in a user's process: its passes
 are part of the host-bound rates on the card. One full collection before
 the timed turns empties its young generations, and the aligner, the
 converter and the tracker are timed in turns, so that the rates the
-asserts compare share the host's state.
+asserts compare share the host's state. On the card every stage
+replays its CUDA graph (``utils/graphs``); each key is captured in the
+warm-up calls of its chain, outside the timed turns.
 
     python -m g2o_frontend_tpu_torch.apps.bench
     python -m g2o_frontend_tpu_torch.apps.bench --device cpu --no-cpu-control

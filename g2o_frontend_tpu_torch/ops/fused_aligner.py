@@ -110,7 +110,9 @@ _SYM = [0, 1, 2, 1, 3, 4, 2, 4, 5]  # sym6 -> row-major 3x3
 
 
 def _sym(v):
-    return v[..., _SYM].unflatten(-1, (3, 3))
+    # slices, not a list index: a list becomes a host tensor, which a CUDA
+    # graph cannot capture (utils/graphs)
+    return torch.stack([v[..., i] for i in _SYM], -1).unflatten(-1, (3, 3))
 
 
 def unpack_sums(sums):

@@ -26,8 +26,14 @@ current cloud (the loop closer's batched candidate matching): one launch of
 the batch kernel (``fused_aligner.fused_system_batch``) per Gauss-Newton
 system, batched 6x6 solves and chart updates.
 
-Nothing in `align` or `align_batch` synchronises with the host: the solves
-use the ``_ex`` forms with ``check_errors=False``.
+On a CUDA device each call of `align` or `align_batch` replays one CUDA
+graph, captured once per key (``utils/graphs``; the counterpart of the JAX
+functions' ``jax.jit``), and returns fresh clones of the graph's outputs,
+as the JAX functions return fresh arrays. A numpy `initial_guess` is
+copied to the device before the replay. The captured bodies are the
+private `_align` and `_align_batch`, which run eagerly on the CPU; nothing
+in them synchronises with the host (the solves use the ``_ex`` forms with
+``check_errors=False``).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import torch
 from ..ops import fused_aligner as _fa
 from ..ops import linearizer as _lin
 from ..ops.eigh3x3 import eigvals3x3
-from ..utils import lie
+from ..utils import graphs, lie
 from .cloud import Cloud
 from .projector import PinholeProjector
 
@@ -198,6 +204,11 @@ def _solve(A, B):
     return torch.linalg.solve_ex(A, B, check_errors=False).result
 
 
+def _check_association(cfg):
+    if cfg.association not in ASSOCIATIONS:
+        raise ValueError(f"association must be one of {ASSOCIATIONS}, got {cfg.association!r}")
+
+
 def align(
     reference: Cloud,
     current: Cloud,
@@ -210,11 +221,18 @@ def align(
 
     `initial_guess` is a (4, 4) transform (tensor or array); `priors`
     optionally adds Gaussian transform priors (one `SE3Prior`, or one with a
-    leading batch dimension) to every Gauss-Newton system.
+    leading batch dimension) to every Gauss-Newton system. On a CUDA device
+    the call replays the graph of its key (see the module docstring).
     """
+    _check_association(config)
+    if initial_guess is not None:
+        initial_guess = torch.as_tensor(initial_guess, dtype=reference.p.dtype, device=reference.p.device)
+    return _ALIGN(reference, current, projector, initial_guess, config, priors)
+
+
+def _align(reference, current, projector, initial_guess, config, priors) -> AlignResult:
+    """`align`'s body, run eagerly (the CPU) or captured (CUDA)."""
     cfg = config
-    if cfg.association not in ASSOCIATIONS:
-        raise ValueError(f"association must be one of {ASSOCIATIONS}, got {cfg.association!r}")
     dtype, device = reference.p.dtype, reference.p.device
     eye6 = torch.eye(6, dtype=dtype, device=device)
     if initial_guess is None:
@@ -279,16 +297,23 @@ def align_batch(
     gather associations launch the batch kernel once per Gauss-Newton
     system (11 per call at the defaults); ``"zbuffer"`` runs K serial
     `align` calls. Returns an `AlignResult` with leading dim K; candidate k
-    equals `align` of that pair.
+    equals `align` of that pair. On a CUDA device the call replays the graph
+    of its key (see the module docstring).
     """
+    _check_association(config)
+    T0 = torch.as_tensor(initial_guesses, dtype=current.p.dtype, device=current.p.device)
+    return _ALIGN_BATCH(references, current, projector, T0, config)
+
+
+def _align_batch(references, current, projector, initial_guesses, config) -> AlignResult:
+    """`align_batch`'s body, run eagerly (the CPU) or captured (CUDA)."""
     cfg = config
-    if cfg.association not in ASSOCIATIONS:
-        raise ValueError(f"association must be one of {ASSOCIATIONS}, got {cfg.association!r}")
     dtype, device = current.p.dtype, current.p.device
     T0 = torch.as_tensor(initial_guesses, dtype=dtype, device=device)
     if cfg.association == "zbuffer":
         results = [
-            align(Cloud(*(f[k] for f in references)), current, projector, T0[k], cfg) for k in range(T0.shape[0])
+            _align(Cloud(*(f[k] for f in references)), current, projector, T0[k], cfg, None)
+            for k in range(T0.shape[0])
         ]
         return AlignResult(*(torch.stack(x) for x in zip(*results)))
 
@@ -334,8 +359,8 @@ def _finalize_stats(T, H, chi2, inliers, cfg) -> AlignResult:
     samples = lie.se3_t2v(T.unsqueeze(-3) @ lie.se3_inverse(lie.se3_v2t(pts)))
     wi_vec = torch.full((13,), wi, dtype=dtype, device=device)
     wp_vec = wi_vec.clone()
-    wi_vec[0] = w0
-    wp_vec[0] = w0_cov
+    wi_vec[:1].fill_(w0)  # fill_ takes the scalar on the device; item assignment copies it from the host
+    wp_vec[:1].fill_(w0_cov)
     mean = (wi_vec[:, None] * samples).sum(-2)
     delta = samples - mean.unsqueeze(-2)
     sigma = torch.einsum("k,...ki,...kj->...ij", wp_vec, delta, delta)
@@ -352,3 +377,7 @@ def _finalize_stats(T, H, chi2, inliers, cfg) -> AlignResult:
     )
     coverage = torch.ones(T.shape[:-2], dtype=dtype, device=device)
     return AlignResult(T, mean, omega, inliers, chi2, tr_ratio, rr_ratio, valid, coverage)
+
+
+_ALIGN = graphs.Stage("align", _align)
+_ALIGN_BATCH = graphs.Stage("align_batch", _align_batch)

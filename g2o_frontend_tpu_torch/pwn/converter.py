@@ -9,7 +9,10 @@ with the reference's semantics: radius clamped to [min_image_radius,
 max_image_radius]; fewer than min_points valid neighbours give no normal;
 normals flipped toward the viewpoint and zeroed above curvature_threshold;
 point omegas U diag(flat | 1/eigenvalues) U^T; normal omegas diagonal.
-Plain PyTorch on the tensor's device.
+Plain PyTorch on the tensor's device. On a CUDA device each call replays
+one CUDA graph captured once per key (``utils/graphs``, the counterpart of
+the JAX function's ``jax.jit``) and returns fresh clones of its outputs;
+the captured body is `_depth_to_cloud`.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from ..ops import sym6
 from ..ops.eigh3x3 import eigh3x3_planar
 from ..ops.integral_image import window_moments_planar
+from ..utils import graphs
 from .cloud import Cloud
 from .projector import PinholeProjector
 
@@ -60,7 +64,15 @@ def depth_to_cloud(
     sensor_offset=None,
 ) -> Cloud:
     """Convert a (H, W) float32 depth tensor to an image-organized Cloud on
-    the depth tensor's device."""
+    the depth tensor's device. `sensor_offset` (a (4, 4) transform, tensor
+    or array) moves the cloud into the sensor's mounting frame."""
+    if sensor_offset is not None:
+        sensor_offset = torch.as_tensor(sensor_offset, dtype=depth.dtype, device=depth.device)
+    return _DEPTH_TO_CLOUD(depth, projector, config, sensor_offset)
+
+
+def _depth_to_cloud(depth, projector, config, sensor_offset) -> Cloud:
+    """`depth_to_cloud`'s body, run eagerly (the CPU) or captured (CUDA)."""
     cfg = config
     points, valid = projector.unproject(depth)
     p = points.movedim(-1, 0).contiguous()  # (3, H, W)
@@ -108,3 +120,6 @@ def depth_to_cloud(
     if sensor_offset is not None:
         cloud = cloud.transform(torch.as_tensor(sensor_offset, dtype=depth.dtype, device=depth.device))
     return cloud
+
+
+_DEPTH_TO_CLOUD = graphs.Stage("depth_to_cloud", _depth_to_cloud)

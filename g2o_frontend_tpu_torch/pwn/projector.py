@@ -117,6 +117,13 @@ class PinholeProjector:
         return r.to(torch.int32)
 
 
+def _mount(t, like):
+    """A child's 16-float mounting transform as a (4, 4) tensor of `like`'s
+    dtype on its device, filled there from scalars: no host copy, so that a
+    CUDA graph can capture it (``utils/graphs``)."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype, device=like.device) for v in t]).reshape(4, 4)
+
+
 @dataclass(frozen=True)
 class MultiProjector:
     """Composite projector: sub-projectors stacked along image columns
@@ -140,7 +147,7 @@ class MultiProjector:
         outs, vals = [], []
         c0 = 0
         for p, t in self.projectors:
-            T = torch.as_tensor(np.reshape(t, (4, 4)), dtype=depth.dtype, device=depth.device)
+            T = _mount(t, depth)
             pts, valid = p.unproject(depth[:, c0 : c0 + p.cols])
             pts = pts @ T[:3, :3].T + T[:3, 3]
             outs.append(torch.where(valid[..., None], pts, 0.0))
@@ -152,7 +159,7 @@ class MultiProjector:
         """Rig-frame points -> composite (depth, index) image."""
         depths, idxs = [], []
         for p, t in self.projectors:
-            T = torch.as_tensor(np.reshape(t, (4, 4)), dtype=points.dtype, device=points.device)
+            T = _mount(t, points)
             Ri = T[:3, :3].T
             local = points @ Ri.T - Ri @ T[:3, 3]
             d, idx = p.project(local, valid)

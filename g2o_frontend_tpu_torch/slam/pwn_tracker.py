@@ -24,9 +24,10 @@ import torch
 
 from ..graph.map_manager import MapManager, MapNode, MapRelation
 
-from ..pwn.aligner import AlignerConfig, align
-from ..pwn.converter import ConverterConfig, depth_to_cloud
+from ..pwn.aligner import AlignerConfig, _align, align
+from ..pwn.converter import ConverterConfig, _depth_to_cloud, depth_to_cloud
 from ..pwn.projector import PinholeProjector
+from ..utils import graphs
 
 
 class CloudCache:
@@ -209,45 +210,63 @@ def odometry_scan(
     depth_scale: float | None = None,
     device="cuda",
 ):
-    """Whole-sequence odometry with no host synchronisation per frame.
+    """Whole-sequence odometry with no host synchronisation per frame (the
+    JAX function's ``lax.scan``).
 
     The keyframe policy of `PwnTracker` runs as tensor selects on the device:
     the carried reference cloud, keyframe pose and global pose switch with
     ``torch.where``. `depths` is a (K, H, W) float batch in meters, or raw
-    uint16 counts with their meters-per-count `depth_scale`.
+    uint16 counts with their meters-per-count `depth_scale`. One frame is
+    one `_scan_step`; on a CUDA device the step is captured once as a CUDA
+    graph and replayed once a frame, its carry kept in the graph's buffers
+    (``utils/graphs.Stage.scan``), and the first frame's cloud comes from
+    `depth_to_cloud`'s graph.
 
     Returns (trajectory (K, 4, 4) world poses, metrics dict of (K,) tensors:
-    inliers, fraction, keyframe, omega_trace).
+    inliers, fraction, keyframe, omega_trace), all fresh tensors, as the
+    JAX function's outputs are fresh arrays.
     """
     depths = _depth_batch(depths, torch.device(device), depth_scale)
-    dev = depths.device
+    eye = torch.eye(4, dtype=torch.float32, device=depths.device)
     ref = depth_to_cloud(depths[0], projector, ccfg)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    kf_T, global_T = eye, eye
-    max_inliers = projector.rows * projector.cols
-    traj, inliers, fraction, keyframe, omega_tr = [eye], [], [], [], []
-    for depth in depths[1:]:
-        cur = depth_to_cloud(depth, projector, ccfg)
-        guess = torch.linalg.solve_ex(kf_T, global_T, check_errors=False).result
-        res = align(ref, cur, projector, guess, acfg)
-        ok = res.inliers >= max(1, min_cloud_inliers)
-        global_T = torch.where(ok, kf_T @ res.T, global_T @ guess)
-        frac = res.inliers / max_inliers
-        new_kf = (frac < kf_fraction) | ~ok
-        ref = type(ref)(*(torch.where(new_kf, b, a) for a, b in zip(ref, cur)))
-        kf_T = torch.where(new_kf, global_T, kf_T)
-        traj.append(global_T)
-        inliers.append(res.inliers)
-        fraction.append(frac)
-        keyframe.append(new_kf)
-        omega_tr.append(torch.trace(res.omega) + res.translational_ratio + res.rotational_ratio)
+    _, outs = _SCAN_STEP.scan((ref, eye, eye), depths[1:], projector, ccfg, acfg, kf_fraction, min_cloud_inliers)
+    return scan_outputs(eye, outs)
+
+
+def _scan_step(carry, depth, projector, ccfg, acfg, kf_fraction, min_cloud_inliers):
+    """One frame of `odometry_scan` (the body of the JAX function's
+    ``lax.scan``): carry (reference cloud, keyframe pose, global pose) and
+    one (H, W) depth in; the new carry and the frame's (global pose,
+    inliers, inlier fraction, keyframe flag, omega trace) out."""
+    ref, kf_T, global_T = carry
+    cur = _depth_to_cloud(depth, projector, ccfg, None)
+    guess = torch.linalg.solve_ex(kf_T, global_T, check_errors=False).result
+    res = _align(ref, cur, projector, guess, acfg, None)
+    ok = res.inliers >= max(1, min_cloud_inliers)
+    global_T = torch.where(ok, kf_T @ res.T, global_T @ guess)
+    frac = res.inliers / (projector.rows * projector.cols)
+    new_kf = (frac < kf_fraction) | ~ok
+    ref = type(ref)(*(torch.where(new_kf, b, a) for a, b in zip(ref, cur)))
+    kf_T = torch.where(new_kf, global_T, kf_T)
+    omega_tr = torch.trace(res.omega) + res.translational_ratio + res.rotational_ratio
+    return (ref, kf_T, global_T), (global_T, res.inliers, frac, new_kf, omega_tr)
+
+
+def scan_outputs(first_pose, outs):
+    """`odometry_scan`'s outputs from the first frame's pose and the steps'
+    outputs: (trajectory (K, 4, 4), metrics dict of (K,) tensors)."""
+    dev = first_pose.device
+    traj, inliers, fraction, keyframe, omega_tr = ([o[i] for o in outs] for i in range(5))
 
     def col(xs, first, dtype):
         return torch.stack([torch.full((), first, dtype=dtype, device=dev)] + [x.to(dtype) for x in xs])
 
-    return torch.stack(traj), {
+    return torch.stack([first_pose] + traj), {
         "inliers": col(inliers, 0, torch.int32),
         "fraction": col(fraction, 1.0, torch.float32),
         "keyframe": col(keyframe, True, torch.bool),
         "omega_trace": col(omega_tr, 0.0, torch.float32),
     }
+
+
+_SCAN_STEP = graphs.Stage("odometry_scan step", _scan_step)

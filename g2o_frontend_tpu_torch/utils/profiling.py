@@ -14,9 +14,10 @@
 - `trace`: ``torch.profiler`` around a block, writing a Chrome trace into a
   directory (the JAX version's ``jax.profiler`` trace directory).
 - `CumulativeTimer`: cumTime/numCalls accumulator (PwnMatcherBase parity).
-- `event_ms`, `device_ms`: CUDA-only timers of `chip_smoke.py` for what a
-  CUDA graph cannot capture (a whole align, which reads the host): CUDA
-  events per run, and the kernel time that ``torch.profiler`` records;
+- `event_ms`, `device_ms`: CUDA-only timers of `chip_smoke.py` for whole
+  calls of the captured stages (``utils/graphs``: a `graph_ms` capture
+  would run their eager bodies inline, not their own graphs): CUDA events
+  per run, and the kernel time that ``torch.profiler`` records;
   `gpu_name_and_power_limit`, the line that goes beside every number.
 - `bound`: the least time of a kernel at one H100's peaks (`HBM_BYTES_PER_S`,
   `F32_OPS_PER_S`; `L2_BYTES` says how much a timing loop must stream to
