@@ -85,8 +85,7 @@ Phases, one line each or more, any failure exits non-zero:
      landmarks (21,662 DOF): (a) the world through write_g2o and back,
      the native parser (g++ build from the checkout) equal to the Python
      one; (b) optimize_se2_schur and optimize_se2_direct each within 1.01x
-     the float64 host control and each run a second time on the card, bit
-     for bit the same, the Schur run repeated on the CPU in a
+     the float64 host control, the Schur run repeated on the CPU in a
      worker process while the card goes on (traces within rtol 1e-3; the
      same worker then runs phase 14's CPU runs), the dense solve against its CPU run on a 1,000-pose
      world; (c) the pose-only world through optimize_se2 with both
@@ -95,9 +94,16 @@ Phases, one line each or more, any failure exits non-zero:
      direct optimize_se2 call; (e) optimize_se3
      (chain) on bench.py's 300-pose world and on the default 2,000-pose
      world against the float64 control, and graph_optimizer on an SE3
-     file. Each solve prints its wall ms by CUDA events, LM and CG
-     iterations and LM iterations/s, and the device ms, device operations
-     and busy share of one LM iteration under torch.profiler;
+     file. Each solver of (b), (c) and (e) runs as utils/graphs.solve_loop
+     runs it (graphs on the card) twice and in "eager" mode once, all bit
+     for bit the same (`graphed_solve`): the whole solve graph against
+     eager in turns by CUDA events, LM and CG iterations, host reads a
+     solve, the device ms, device operations and busy share of one graphed
+     LM iteration under torch.profiler, each captured piece's ms and pool
+     bytes; the covariance stage against its eager mode. Phases 9, 13, 14
+     and 16 record every call of the public solvers (`SolverCalls`), rerun
+     them in eager mode for up to 10 s, bit for bit the same, and print the
+     two times and the captures;
  13. slice 4 (no kernel) at world-2000's counts, a simulated world of 2,001
      poses and 70 landmarks written as a noassoc log: (a) `tracker2d
      --device cuda` with the world2000 flags, then a `models.build(
@@ -1385,6 +1391,142 @@ def same_bits(*pairs):
     return True
 
 
+def graphed_solve(label, fn, one_iteration, lm_of, cg_of=None, launches=None, key=None):
+    """Phase 12's runs of one solver (utils/graphs.solve_loop): graphed twice
+    (the key's first call, its CG blocks graphed; its second, the chain
+    captured and replayed) and eager once ("eager" mode: the eager port, a
+    host read a CG iteration), all bit-equal (trace, poses, landmarks,
+    lambda, LM and CG counts); the whole solve graph against eager in turns
+    (eager, graph, graph, eager) by CUDA events; host reads a solve; one LM
+    iteration, graphed, under torch.profiler; the captures. Returns (the
+    first result, its lines); with `launches`, the first call's segment-sum
+    launches go to launches[key]."""
+    from g2o_frontend_tpu_torch.utils import graphs
+    from tools.graph_probe import solver_leaves
+
+    def eager():
+        with graphs.mode("eager"):
+            return fn()
+
+    since = len(graphs.captures())
+    runs, reads = [], []
+    for f in ((lambda: counted(fn, launches, key)) if launches is not None else fn, fn, eager, fn, fn, eager):
+        graphs.host_reads = 0
+        runs.append(timed(f))
+        reads.append(graphs.host_reads)
+    (out, first_ms), (out2, capture_ms), (out_e, e1), (_, g1), (_, g2), (_, e2) = runs
+    same = same_bits(*zip(solver_leaves(out), solver_leaves(out2))) and same_bits(
+        *zip(solver_leaves(out), solver_leaves(out_e)))
+    check(same, f"{label}: a graphed solve differs from its eager mode")
+    one_iteration()
+    one_iteration()  # its key captured
+    _, wall1, dev1, ops1 = profiled(one_iteration)
+    caps = graphs.captures()[since:]
+    kept = [c for c in caps if c.kept]
+    cg = f", CG iterations {cg_of(out[1])}" if cg_of else ""
+    lines = [f"{label}: LM iterations {lm_of(out[1])}{cg}; graphed, eager bit-equal {same} (two graphed, one "
+             f"eager); whole solve by CUDA events in turns (eager, graph, graph, eager): graph {min(g1, g2):.3f} ms "
+             f"({g1:.3f}, {g2:.3f}), eager {min(e1, e2):.3f} ms ({e1:.3f}, {e2:.3f}), {min(e1, e2) / min(g1, g2):.2f}x; "
+             f"the key's first call {first_ms:.3f} ms, its second (the chain's capture) {capture_ms:.3f} ms; host "
+             f"reads a solve: graphed {reads[3]}, eager {reads[2]}; one LM iteration graphed under torch.profiler: "
+             f"wall {wall1:.3f} ms, device {dev1:.3f} ms ({100.0 * dev1 / wall1:.1f}% busy), {ops1} device "
+             "operations",
+             f"{label}: captures {len(kept)} kept ("
+             + ", ".join(f"{c.stage.split(': ')[-1]} {c.capture_ms:.1f} ms, pool +{c.pool_bytes} B" for c in kept)
+             + f"), {len(caps) - len(kept)} CG-block graphs dropped at their solve's end ("
+             f"{sum(c.capture_ms for c in caps if not c.kept):.1f} ms)"]
+    return out, lines, dict(graph_ms=min(g1, g2), eager_ms=min(e1, e2))
+
+
+class SolverCalls:
+    """Within the block, every call of the public solvers that the callers
+    of phases 9, 13, 14 and 16 reach (`optimize_se2`, `optimize_se3`,
+    `optimize_se2_schur`, `landmark_covariance_se2`) on the card timed
+    graphed (the host clock between synchronisations), its arguments and
+    result kept.
+    `report` reruns the calls in "eager" mode, in order, until `budget_s` of
+    eager time: each bit-equal to its graphed result, the two times
+    compared, and prints them with the captures made in the block."""
+
+    def __init__(self, phase, budget_s=10.0):
+        self.phase, self.budget_s, self.calls = phase, budget_s, []
+
+    def __enter__(self):
+        from g2o_frontend_tpu_torch.graph import reflector
+        from g2o_frontend_tpu_torch.slam import grid_slam
+        from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+        from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+        from g2o_frontend_tpu_torch.utils import graphs
+
+        self.since = len(graphs.captures())
+        self.saved = []
+        wrapped = {}
+        for mod, name in ((pg, "optimize_se2"), (pg, "optimize_se3"), (sp, "optimize_se2_schur"),
+                          (sp, "landmark_covariance_se2"), (grid_slam, "optimize_se2"), (reflector, "optimize_se3")):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            if fn not in wrapped:
+                wrapped[fn] = self._wrap(name, fn)
+            setattr(mod, name, wrapped[fn])
+        return self
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            if args[0].poses.device.type != "cuda":  # a CPU run beside the card's
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((name, fn, args, kwargs, out, time.perf_counter() - t0))
+            return out
+
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def report(self):
+        import torch
+
+        from g2o_frontend_tpu_torch.utils import graphs
+        from tools.graph_probe import solver_leaves
+
+        graphed = eager = 0.0
+        rerun, same = 0, True
+        for name, fn, args, kwargs, out, seconds in self.calls:
+            if eager >= self.budget_s:
+                break
+            with graphs.mode("eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out_e = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            eager += time.perf_counter() - t0
+            graphed += seconds
+            rerun += 1
+            same = same and same_bits(*zip(solver_leaves(out), solver_leaves(out_e)))
+        caps = graphs.captures()[self.since:]
+        chains = [c for c in caps if c.kept and ": " in c.stage]  # a solve's head, block and tail
+        by = {}
+        for name, *_ in self.calls:
+            by[name] = by.get(name, 0) + 1
+        total = sum(c[-1] for c in self.calls)
+        ratio = f"{eager / graphed:.2f}x" if graphed else "no call"
+        say(self.phase, f"solver calls {len(self.calls)} {json.dumps(by)}, graphed {1000 * total:.1f} ms in all; the "
+            f"first {rerun} rerun in eager mode: graphed {1000 * graphed:.1f} ms, eager {1000 * eager:.1f} ms "
+            f"(eager / graphed {ratio}), bit-equal {same}; captures: {len(chains)} solve graphs kept "
+            f"({sum(c.capture_ms for c in chains):.1f} ms, pool +{sum(c.pool_bytes for c in chains)} B), "
+            f"{len([c for c in caps if not c.kept])} CG-block graphs dropped at their solve's end "
+            f"({sum(c.capture_ms for c in caps if not c.kept):.1f} ms), "
+            f"{len([c for c in caps if c.stage.startswith('landmark')])} covariance stages")
+        check(same, f"phase {self.phase}: a caller's graphed solve differs from its eager mode")
+        return dict(calls=len(self.calls), rerun=rerun, graphed_ms=1000 * graphed, eager_ms=1000 * eager)
+
+
 def counted(fn, into, key):
     """fn() with `ops.segment_sum`'s launch count set to 0 just before and
     read just after, into `into[key]`."""
@@ -1456,6 +1598,7 @@ def phase_backend(ctx, out_dir):
     from g2o_frontend_tpu_torch.solvers import pose_graph as pg
     from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
     from g2o_frontend_tpu_torch.solvers.control import control_optimize_se2, control_optimize_se3
+    from g2o_frontend_tpu_torch.utils import graphs
 
     device, t12 = ctx["device"], time.perf_counter()
 
@@ -1487,30 +1630,29 @@ def phase_backend(ctx, out_dir):
         f"iterations, {ctl_s:.2f} s")
     woodbury = 2 * g.landmarks.shape[0] <= sp.WOODBURY_MAX_DIM
     launches = ctx.setdefault("segment_sum_launches", {})
-    (gs, ss), line = solve_line(f"(b) optimize_se2_schur {SCHUR_CAPS}, Woodbury {woodbury}",
-                                lambda: counted(lambda: sp.optimize_se2_schur(g, **SCHUR_CAPS), launches, "schur"),
-                                lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS, "iters": 1}),
-                                lambda st: st.lm_iters, lambda st: st.cg_iters)
+    (gs, ss), lines, times = graphed_solve(f"(b) optimize_se2_schur {SCHUR_CAPS}, Woodbury {woodbury}",
+                                           lambda: sp.optimize_se2_schur(g, **SCHUR_CAPS),
+                                           lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS, "iters": 1}),
+                                           lambda st: st.lm_iters, lambda st: st.cg_iters, launches, "schur")
+    ctx.setdefault("solve_ms", {})["schur"] = times
     ratio = float(ss.chi2[-1]) / ctl["chi2"]
-    say("backend", line + f"; chi2 {float(ss.chi2[-1]):.6f}, {ratio:.6f}x the control; segment-sum kernel "
-        f"launches {launches['schur']} ({launches['schur'] / max(ss.cg_iters, 1):.1f} a CG iteration)")
+    for line in lines:
+        say("backend", line)
+    say("backend", f"(b) optimize_se2_schur: chi2 {float(ss.chi2[-1]):.6f}, {ratio:.6f}x the control; segment-sum "
+        f"kernel launches {launches['schur']} ({launches['schur'] / max(ss.cg_iters, 1):.1f} a CG iteration)")
     check(ratio <= 1.01, f"optimize_se2_schur reached {ratio:.6f}x the control")
-    gs2, ss2 = sp.optimize_se2_schur(g, **SCHUR_CAPS)
-    same = same_bits((ss.chi2, ss2.chi2), (gs.poses, gs2.poses), (gs.landmarks, gs2.landmarks))
-    say("backend", f"(b) optimize_se2_schur a second time on the card: trace, poses and landmarks bit-equal {same}")
-    check(same, "two card runs of optimize_se2_schur differ")
     torch.cuda.reset_peak_memory_stats()
-    (gd, sd), line = solve_line(f"(b) optimize_se2_direct (iters={DIRECT_ITERS}, dense {n_dof}^2 float32 Cholesky)",
-                                lambda: pg.optimize_se2_direct(g, iters=DIRECT_ITERS),
-                                lambda: pg.optimize_se2_direct(g, iters=1), lambda st: st.cg_iters)
+    (gd, sd), lines, times = graphed_solve(
+        f"(b) optimize_se2_direct (iters={DIRECT_ITERS}, dense {n_dof}^2 float32 Cholesky)",
+        lambda: pg.optimize_se2_direct(g, iters=DIRECT_ITERS), lambda: pg.optimize_se2_direct(g, iters=1),
+        lambda st: st.cg_iters)
+    ctx["solve_ms"]["direct"] = times
     ratio = float(sd.chi2[-1]) / ctl["chi2"]
-    say("backend", line + f"; chi2 {float(sd.chi2[-1]):.6f}, {ratio:.6f}x the control; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for line in lines:
+        say("backend", line)
+    say("backend", f"(b) optimize_se2_direct: chi2 {float(sd.chi2[-1]):.6f}, {ratio:.6f}x the control; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the graphs' pool included)")
     check(ratio <= 1.01, f"optimize_se2_direct reached {ratio:.6f}x the control")
-    gd2, sd2 = pg.optimize_se2_direct(g, iters=DIRECT_ITERS)
-    same = same_bits((sd.chi2, sd2.chi2), (gd.poses, gd2.poses), (gd.landmarks, gd2.landmarks))
-    say("backend", f"(b) optimize_se2_direct a second time on the card: trace, poses and landmarks bit-equal {same}")
-    check(same, "two card runs of optimize_se2_direct differ")
     small = simulate(SimulatorConfig(**{**VICTORIA, "n_poses": 1000})).to_g2o_log()
     g1, _ = graph2d_from_log(small, device=device)
     g1c, _ = graph2d_from_log(small, device="cpu")
@@ -1531,18 +1673,30 @@ def phase_backend(ctx, out_dir):
     g0c, _ = graph2d_from_log(pose_only, device="cpu")
     ctl0 = control_optimize_se2(g0c)
     for precond in ("jacobi", "chain"):
-        (_, s0), line = solve_line(f"(c) optimize_se2 pose-only ({len(pose_only.edge_se2_ij)} edges), {precond} "
-                                   f"{PCG_CAPS}", lambda: pg.optimize_se2(g0, precond=precond, **PCG_CAPS),
-                                   lambda: pg.optimize_se2(g0, precond=precond, **{**PCG_CAPS, "iters": 1}),
-                                   lambda st: PCG_CAPS["iters"], lambda st: st.cg_iters)
+        (_, s0), lines, times = graphed_solve(
+            f"(c) optimize_se2 pose-only ({len(pose_only.edge_se2_ij)} edges), {precond} {PCG_CAPS}",
+            lambda: pg.optimize_se2(g0, precond=precond, **PCG_CAPS),
+            lambda: pg.optimize_se2(g0, precond=precond, **{**PCG_CAPS, "iters": 1}), lambda st: PCG_CAPS["iters"],
+            lambda st: st.cg_iters)
+        ctx["solve_ms"][f"se2 {precond}"] = times
         (_, s0c), cpu_s = host_s(lambda: pg.optimize_se2(g0c, precond=precond, **PCG_CAPS))
         ok, rel = trace_close(s0.chi2, s0c.chi2, 1e-3)
-        say("backend", line + f"; chi2 {float(s0.chi2[-1]):.4f}, {float(s0.chi2[-1]) / ctl0['chi2']:.4f}x the control "
-            f"({ctl0['chi2']:.4f}; not gated); CPU {cpu_s:.2f} s, traces within rtol {rel:.2e} (limit 1e-3)")
+        for line in lines:
+            say("backend", line)
+        say("backend", f"(c) {precond}: chi2 {float(s0.chi2[-1]):.4f}, {float(s0.chi2[-1]) / ctl0['chi2']:.4f}x the "
+            f"control ({ctl0['chi2']:.4f}; not gated); CPU {cpu_s:.2f} s, traces within rtol {rel:.2e} (limit 1e-3)")
         check(ok, f"{precond} traces of the card and the CPU differ by {rel:.2e}")
 
     # (d) the landmark covariance and the command line
+    cov_first = sp.landmark_covariance_se2(g)  # a key seen once: eager
+    sp.landmark_covariance_se2(g)  # captured
     cov, wall, dev, ops = profiled(lambda: sp.landmark_covariance_se2(g))
+    with graphs.mode("eager"):
+        cov_e = sp.landmark_covariance_se2(g)
+    same = same_bits((cov, cov_first), (cov, cov_e))
+    say("backend", f"(d) landmark_covariance_se2: the replayed stage, its first (eager) call and its eager mode "
+        f"bit-equal {same}")
+    check(same, "the covariance stage differs from its eager body")
     cov_c = sp.landmark_covariance_se2(gc)
     # the landmarks that some pose observes (an unobserved one keeps its
     # damping's 1e10 variance in both packages)
@@ -1572,13 +1726,17 @@ def phase_backend(ctx, out_dir):
                              ("the default 2,000-pose world", Simulator3DConfig(), SE3_2000_CAPS)):
         g3, info = simulate_se3(cfg, device=device)
         ctl3 = control_optimize_se3(g3.to("cpu"), max_iters=60)
-        (_, s3), line = solve_line(f"(e) optimize_se3 on {label} ({info['n_edges']} edges, {info['n_closures']} "
-                                   f"closures) {caps}", lambda: pg.optimize_se3(g3, **caps),
-                                   lambda: pg.optimize_se3(g3, **{**caps, "iters": 1}), lambda st: caps["iters"],
-                                   lambda st: st.cg_iters)
+        (_, s3), lines, times = graphed_solve(
+            f"(e) optimize_se3 on {label} ({info['n_edges']} edges, {info['n_closures']} closures) {caps}",
+            lambda: pg.optimize_se3(g3, **caps), lambda: pg.optimize_se3(g3, **{**caps, "iters": 1}),
+            lambda st: caps["iters"], lambda st: st.cg_iters)
+        ctx["solve_ms"][f"se3 {cfg.n_poses}"] = times
         ratio = float(s3.chi2[-1]) / ctl3["chi2"]
         ctx.setdefault("se3", {})[cfg.n_poses] = (g3, ctl3)  # for phase 15
-        say("backend", line + f"; chi2 {float(s3.chi2[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x")
+        for line in lines:
+            say("backend", line)
+        say("backend", f"(e) {cfg.n_poses} poses: chi2 {float(s3.chi2[-1]):.4f}, control {ctl3['chi2']:.4f}, "
+            f"{ratio:.6f}x")
         check(np.isfinite(ratio), "non-finite SE3 chi2")
         if cfg.n_poses == 300:  # the gate of bench.py's SE3 world (the 2,000-pose one is only reported)
             check(ratio <= 1.01, f"optimize_se3 on the 300-pose world reached {ratio:.6f}x the control")
@@ -2409,12 +2567,14 @@ def phase_segment_sum(ctx, ba):
     from g2o_frontend_tpu_torch.ops import segment_sum as ss
     from g2o_frontend_tpu_torch.solvers import ba as tba
     from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+    from g2o_frontend_tpu_torch.utils import graphs
     from g2o_frontend_tpu_torch.utils.profiling import graph_ms
 
     t0 = time.perf_counter()
     g = ctx["victoria"]["g"]
-    recorded = [("Schur", "schur", c) for c in record_sums(lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS,
-                                                                                                "iters": 1}))]
+    with graphs.mode("eager"):  # a replayed graph calls no wrapper: record the sums where they run
+        recorded = [("Schur", "schur", c) for c in record_sums(lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS,
+                                                                                                    "iters": 1}))]
     recorded += [("BA", "ba", c) for c in record_sums(lambda: tba.optimize_ba(ba, iters=1, cg_iters=50))]
     recorded += ctx.pop("sums_recorded", [])
     values, seg = recorded[0][2]
@@ -2952,7 +3112,9 @@ def run(out_dir):
     phase(6, phase_kernel2, ctx)
     phase(7, phase_align_batch, ctx)
     err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase(8, phase_kernel3, ctx)
-    k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase(9, phase_slam, ctx, out_dir)
+    with SolverCalls("slam") as calls:
+        k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase(9, phase_slam, ctx, out_dir)
+    callers = {9: calls.report()}
     gather_entries = phase(10, phase_gather, ctx)
     t11 = time.perf_counter()  # 11
     phase_conf_apps(ctx, out_dir)
@@ -2963,18 +3125,29 @@ def run(out_dir):
     say("pwn", f"phase 11 took {time.perf_counter() - t11:.1f} s")
     try:
         phase(12, phase_backend, ctx, out_dir)
-        phase(13, phase_slam2d, ctx, out_dir)
-        phase(14, phase_slice5, ctx, out_dir)
+        with SolverCalls("slam2d") as calls:
+            phase(13, phase_slam2d, ctx, out_dir)
+        callers[13] = calls.report()
+        with SolverCalls("slice5") as calls:
+            phase(14, phase_slice5, ctx, out_dir)
+        callers[14] = calls.report()
     finally:  # the CPU worker of phases 12 and 14
         if "cpu_pool" in ctx:
             ctx.pop("cpu_pool").terminate()
     phase(15, phase_parallel, ctx, out_dir)
-    paths16 = phase(16, phase_entry_points, ctx, out_dir)
+    with SolverCalls("entry") as calls:
+        paths16 = phase(16, phase_entry_points, ctx, out_dir)
+    callers[16] = calls.report()
     say("graphs", "graph against eager, whole calls at 640x480 (ms): " + "; ".join(
         f"{r['stage']} {r['graph_ms']:.4f} vs {r['eager_ms']:.4f} ({r['speedup']:.2f}x, device idle "
         f"{100 * r['graph_idle_share']:.1f}% of a replay)" for r in ctx["stage_ms"]))
     say("graphs", f"bench {json.dumps(ctx['bench'])}; tracker frames/s {json.dumps(ctx['tracker_fps'])}; stress run "
         f"frames/s (no cache, cache) {ctx['stress_fps']}; {ctx['captures']} keys captured")
+    say("graphs", "solves at victoriaPark's counts, graph against eager (ms): " + "; ".join(
+        f"{k} {v['graph_ms']:.3f} vs {v['eager_ms']:.3f} ({v['eager_ms'] / v['graph_ms']:.2f}x)"
+        for k, v in ctx["solve_ms"].items()) + "; the callers' solves, graphed against their eager reruns (ms): "
+        + "; ".join(f"phase {n} {c['graphed_ms']:.1f} vs {c['eager_ms']:.1f} over {c['rerun']} of {c['calls']} calls"
+                    for n, c in callers.items()))
 
     kernels = []
     for name, source, replaces, launches, err, ms, plain_ms, (bound_ms, bound_by) in (

@@ -69,6 +69,14 @@ class PoseGraph2D:
     def n_pl_edges(self) -> int:
         return int(self.pl_mask.sum())
 
+    def __tree_flatten__(self):
+        """(nothing static, the tensors): a node of `utils.graphs`' trees."""
+        return None, tuple(vars(self).values())
+
+    @classmethod
+    def __tree_unflatten__(cls, aux, children):
+        return cls(*children)
+
     def with_poses(self, poses, landmarks=None) -> "PoseGraph2D":
         new = replace(self, poses=poses)
         if landmarks is not None:
@@ -95,6 +103,14 @@ class PoseGraph3D:
     @property
     def n_pp_edges(self) -> int:
         return int(self.pp_mask.sum())
+
+    def __tree_flatten__(self):
+        """(nothing static, the tensors): a node of `utils.graphs`' trees."""
+        return None, tuple(vars(self).values())
+
+    @classmethod
+    def __tree_unflatten__(cls, aux, children):
+        return cls(*children)
 
     def with_poses(self, poses) -> "PoseGraph3D":
         return replace(self, poses=poses)

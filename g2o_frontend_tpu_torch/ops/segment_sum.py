@@ -193,6 +193,18 @@ class SegmentIndex:
         if self.index.is_cuda:
             self._build()
 
+    def __tree_flatten__(self):
+        """(n, the index and its built tensors): a node of `utils.graphs`'
+        trees, so that a captured graph reads an index from static buffers."""
+        return self.n, (self.index, self._order, self._offsets, self._by_length, self._sorted_lengths)
+
+    @classmethod
+    def __tree_unflatten__(cls, n, children):
+        seg = cls.__new__(cls)
+        seg.n = n
+        seg.index, seg._order, seg._offsets, seg._by_length, seg._sorted_lengths = children
+        return seg
+
     def _build(self):
         if self.index.numel() >= 2**31 or self.n >= INT32_MAX:
             raise ValueError(f"segment index of {self.index.numel()} rows into {self.n} segments exceeds int32")

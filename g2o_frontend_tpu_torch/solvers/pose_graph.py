@@ -25,9 +25,12 @@ matrix-free by PCG (`pcg.py`) with a block-Jacobi or a chain
 (block-tridiagonal, `tridiag.py`) preconditioner, or, in
 `optimize_se2_direct`, by a dense Cholesky factor. Gauge freedom is handled
 by projecting the fixed and masked DOFs out. LM damping with accept/reject
-stays on the device (``torch.where``); the host reads PCG's stopping test
-once a CG iteration, and `optimize_se2_direct` reads its convergence test
-once an LM iteration (JAX's ``lax.while_loop`` condition).
+stays on the device (``torch.where``). Each solve runs through
+`utils.graphs.solve_loop` as JAX runs its ``fori_loop`` / ``while_loop``:
+on the card a graph for an LM iteration's head, one for each block of
+`pcg.BLOCK` masked CG steps (the stopping test computed on the device, read
+once a block) and one for its tail; `optimize_se2_direct` reads its
+convergence test once an LM iteration.
 
 The graph's tensors set the device. Float32 matrix products must run in
 full float32 (the JAX version pins ``"highest"`` precision for this):
@@ -42,8 +45,8 @@ import torch.nn.functional as F
 
 from ..graph.store import PoseGraph2D, PoseGraph3D
 from ..ops import segment_sum as ss
-from ..utils import lie
-from .pcg import pcg
+from ..utils import graphs, lie
+from .pcg import cg_carry, cg_loop
 from .tridiag import cr_factor, cr_solve
 
 PRECONDITIONERS = ("jacobi", "chain")
@@ -137,7 +140,8 @@ def linearize_se2(g: PoseGraph2D, huber_delta=None) -> Linearization:
     xi, xj = g.poses[g.pp_ij[:, 0]], g.poses[g.pp_ij[:, 1]]
     e_pp = se2_pp_residual(xi, xj, g.pp_meas)
     Jt, Rt = _se2_point_jacobians(xi, xj[:, :2])
-    angle_row = xi.new_tensor([0.0, 0.0, 1.0]).expand(xi.shape[0], 1, 3)  # d wrap(th_j - th_i - z)
+    # d wrap(th_j - th_i - z), made on the device (a host-made row is a copy a CUDA graph cannot capture)
+    angle_row = F.pad(xi.new_ones((1, 1, 1)), (2, 0)).expand(xi.shape[0], 1, 3)
     Ji_pp = torch.cat([Jt, -angle_row], 1)
     Jj_pp = torch.cat([F.pad(Rt, (0, 1)), angle_row], 1)
     w_pp, total = _weigh(e_pp, g.pp_info, g.pp_mask, huber_delta)
@@ -263,6 +267,120 @@ def _chain_blocks(lin, chain, chain_i, free_p):
     return torch.cat([U.new_zeros((1, d, d)), U.transpose(1, 2)[:-1]]), U
 
 
+class LMState(NamedTuple):
+    """The LM state of a solve, on the device: `trace` holds the initial
+    chi2 and one entry an iteration, `k` the iterations run; `cg_total` the
+    CG iterations where a solve runs CG; `nu` and `done` (Nielsen's
+    schedule, the convergence test) where it stops on convergence; `lms`
+    None for SE3."""
+
+    poses: torch.Tensor
+    lms: torch.Tensor | None
+    lam: torch.Tensor
+    trace: torch.Tensor
+    k: torch.Tensor
+    cg_total: torch.Tensor | None = None
+    nu: torch.Tensor | None = None
+    done: torch.Tensor | None = None
+
+
+def trace_put(trace, k, value):
+    """The chi2 trace with `value` at k + 1 and every later entry: the
+    entries after the last iteration carry its value, as JAX pads."""
+    return torch.where(torch.arange(trace.shape[0], device=trace.device) > k, value, trace)
+
+
+def _start(g, chi2, lm_lambda0, iters, landmarks=None, cg=True, stops=False):
+    """An `LMState` at the graph's poses, lambda0 and `chi2` (the trace's
+    first entry and its padding)."""
+    lam = torch.tensor(lm_lambda0, dtype=g.poses.dtype, device=g.poses.device)
+    zero = torch.zeros((), dtype=torch.int64, device=g.poses.device)
+    return LMState(g.poses, landmarks, lam, chi2.expand(iters + 1).clone(), zero, zero if cg else None,
+                   torch.full_like(lam, 2.0) if stops else None,
+                   torch.zeros((), dtype=torch.bool, device=g.poses.device) if stops else None)
+
+
+def _cg_report(st):
+    return st.cg_total.reshape(1)
+
+
+class _SE2Consts(NamedTuple):
+    free_p: torch.Tensor
+    free_l: torch.Tensor
+    seg: EdgeSegments
+    chain: torch.Tensor | None
+    chain_i: ss.SegmentIndex | None
+
+
+class _Params(NamedTuple):
+    """A solve's static parameters (part of its graphs' key)."""
+
+    huber_delta: float | None
+    precond: str
+    cg_iters: int
+
+
+class _Mid(NamedTuple):
+    lin: Linearization
+    Dp: torch.Tensor
+    Dl: torch.Tensor | None
+    lam: torch.Tensor
+    pre: tuple  # the preconditioner's tensors
+    tol2: torch.Tensor
+
+
+def _se2_head(inputs, st: LMState):
+    """Linearize, the gradient and block diagonal, the preconditioner,
+    start CG."""
+    g, c, prm = inputs
+    gk = g.with_poses(st.poses, st.lms)
+    lin = linearize_se2(gk, prm.huber_delta)
+    gp, gl = _grad_se2(gk, lin, c.seg)
+    Dp, Dl = _diag_blocks_se2(gk, lin, c.seg)
+    if prm.precond == "chain":
+        L_pre, U_pre = _chain_blocks(lin, c.chain, c.chain_i, c.free_p)
+        pre = (cr_factor(L_pre, _damped(Dp, st.lam, c.free_p), U_pre), _damped_inverse(Dl, st.lam, c.free_l))
+    else:
+        pre = (_damped_inverse(Dp, st.lam, c.free_p), _damped_inverse(Dl, st.lam, c.free_l))
+    mid = _Mid(lin, Dp, Dl, st.lam, pre, None)
+    carry, tol2 = cg_carry((-gp * c.free_p[:, None], -gl * c.free_l[:, None]), _se2_operators(((g, c, prm), mid))[1],
+                           1e-8)
+    return mid._replace(tol2=tol2), carry
+
+
+def _se2_operators(cs):
+    (g, c, prm), mid = cs
+    hvp = _compose_hvp(_hvp_edges_se2(g, mid.lin, c.seg), c.free_p, c.free_l, mid.lam, mid.Dp, mid.Dl)
+    if prm.precond == "chain":
+        fac, Dl_inv = mid.pre
+
+        def pre(r):
+            return cr_solve(fac, r[0]), torch.einsum("kij,kj->ki", Dl_inv, r[1])
+
+    else:
+        Dp_inv, Dl_inv = mid.pre
+
+        def pre(r):
+            return torch.einsum("kij,kj->ki", Dp_inv, r[0]), torch.einsum("kij,kj->ki", Dl_inv, r[1])
+
+    return hvp, pre
+
+
+def _se2_tail(inputs, st: LMState, mid: _Mid, carry) -> LMState:
+    g, c, prm = inputs
+    dp, dl = carry.x
+    new_poses = st.poses + dp * c.free_p[:, None]
+    new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+    new_lms = st.lms + dl * c.free_l[:, None]
+    lin_new = linearize_se2(g.with_poses(new_poses, new_lms), prm.huber_delta)
+    accept = lin_new.chi2 < mid.lin.chi2
+    poses = torch.where(accept, new_poses, st.poses)
+    lms = torch.where(accept, new_lms, st.lms)
+    lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
+    trace = trace_put(st.trace, st.k, torch.where(accept, lin_new.chi2, mid.lin.chi2))
+    return LMState(poses, lms, lam, trace, st.k + 1, st.cg_total + carry.k)
+
+
 def optimize_se2(
     g: PoseGraph2D,
     iters: int = 10,
@@ -275,49 +393,21 @@ def optimize_se2(
 
     precond: "jacobi" (the point-block diagonal) or "chain" (the
     block-tridiagonal odometry-chain factor by cyclic reduction on the pose
-    block, block-Jacobi on the landmarks).
+    block, block-Jacobi on the landmarks). `iters` LM iterations (JAX's
+    ``fori_loop``), each run by `utils.graphs.solve_loop`: a head, CG in
+    blocks of `pcg.BLOCK` masked steps, a tail.
     """
     if precond not in PRECONDITIONERS:
         raise ValueError(f"precond must be one of {PRECONDITIONERS}, got {precond!r}")
     dtype = g.poses.dtype
     free_p = (g.pose_mask & ~g.fixed).to(dtype)
     free_l = g.landmark_mask.to(dtype)
-    if precond == "chain":
-        chain, chain_i = _chain(g)
-    seg = edge_segments(g)
-
-    trace = [linearize_se2(g, huber_delta).chi2]
-    poses, lms = g.poses, g.landmarks
-    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
-    cg_total = 0
-    for _ in range(iters):
-        gk = g.with_poses(poses, lms)
-        lin = linearize_se2(gk, huber_delta)
-        gp, gl = _grad_se2(gk, lin, seg)
-        Dp, Dl = _diag_blocks_se2(gk, lin, seg)
-        hvp = _compose_hvp(_hvp_edges_se2(gk, lin, seg), free_p, free_l, lam, Dp, Dl)
-        if precond == "chain":
-            L_pre, U_pre = _chain_blocks(lin, chain, chain_i, free_p)
-            fac, Dl_inv = cr_factor(L_pre, _damped(Dp, lam, free_p), U_pre), _damped_inverse(Dl, lam, free_l)
-
-            def pre(r, fac=fac, Dl_inv=Dl_inv):
-                return cr_solve(fac, r[0]), torch.einsum("kij,kj->ki", Dl_inv, r[1])
-
-        else:
-            pre = _block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
-        (dp, dl), cg_k, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), pre, max_iters=cg_iters,
-                                rtol=1e-8)
-        new_poses = poses + dp * free_p[:, None]
-        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
-        new_lms = lms + dl * free_l[:, None]
-        lin_new = linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
-        accept = lin_new.chi2 < lin.chi2
-        poses = torch.where(accept, new_poses, poses)
-        lms = torch.where(accept, new_lms, lms)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
-        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
-        cg_total += cg_k
-    return g.with_poses(poses, lms), OptStats(torch.stack(trace), lam, cg_total)
+    chain, chain_i = _chain(g) if precond == "chain" else (None, None)
+    inputs = (g, _SE2Consts(free_p, free_l, edge_segments(g), chain, chain_i), _Params(huber_delta, precond, cg_iters))
+    state = _start(g, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks)
+    solve = graphs.Solve(_se2_head, _se2_tail, _cg_report, cg_loop(_se2_operators, lambda cs: cs[1].tol2, cg_iters))
+    st, (cg_total,) = graphs.solve_loop(f"optimize_se2 ({precond})", solve, inputs, state, iters)
+    return g.with_poses(st.poses, st.lms), OptStats(st.trace, st.lam, cg_total)
 
 
 def _dense_plan(g: PoseGraph2D):
@@ -376,6 +466,52 @@ def _dense_system(g: PoseGraph2D, lin: Linearization, plan=None):
     return H.view(D, D), b
 
 
+class _DirectMid(NamedTuple):
+    chi2: torch.Tensor
+    new_poses: torch.Tensor
+    new_lms: torch.Tensor
+
+
+def _direct_head(inputs, st: LMState):
+    """The dense system, its Cholesky factor, the refined step."""
+    g, (free, plan), huber_delta = inputs
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    lin = linearize_se2(g.with_poses(st.poses, st.lms), huber_delta)
+    H, b = _dense_system(g, lin, plan)
+    # gauge and mask projection: fixed or padded DOFs become identity rows
+    Hd = H.mul_(free[:, None] * free[None, :])
+    diag = Hd.diagonal()
+    diag.add_(st.lam * diag + (1.0 - free) + 1e-6 * free)
+    L = torch.linalg.cholesky_ex(Hd, check_errors=False).L
+    rhs = (-b * free)[:, None]
+    dx = torch.cholesky_solve(rhs, L)
+    for _ in range(2):
+        dx = dx + torch.cholesky_solve(rhs - Hd @ dx, L)
+    dx = dx[:, 0] * free
+    new_poses = st.poses + dx[: 3 * NP].reshape(NP, 3)
+    new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+    return _DirectMid(lin.chi2, new_poses, st.lms + dx[3 * NP:].reshape(NL, 2)), None
+
+
+def _direct_tail(inputs, st: LMState, mid: _DirectMid, carry) -> LMState:
+    """Accept or reject, Nielsen's lambda schedule, the convergence test."""
+    g, _, huber_delta = inputs
+    lin_new = linearize_se2(g.with_poses(mid.new_poses, mid.new_lms), huber_delta)
+    ok = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < mid.chi2)
+    poses = torch.where(ok, mid.new_poses, st.poses)
+    lms = torch.where(ok, mid.new_lms, st.lms)
+    lam = torch.where(ok, torch.clamp_min(st.lam / 3.0, 1e-12), torch.clamp_max(st.lam * st.nu, 1e10))
+    nu = torch.where(ok, 2.0, torch.clamp_max(st.nu * 2.0, 64.0))
+    rel_drop = (mid.chi2 - lin_new.chi2) / torch.clamp_min(mid.chi2, 1e-30)
+    done = (ok & (rel_drop < 1e-9)) | (~ok & (lam >= 1e10))
+    trace = trace_put(st.trace, st.k, torch.where(ok, lin_new.chi2, mid.chi2))
+    return LMState(poses, lms, lam, trace, st.k + 1, None, nu, done)
+
+
+def _direct_report(st: LMState):
+    return torch.stack([st.done.to(torch.int64), st.k])
+
+
 def optimize_se2_direct(
     g: PoseGraph2D,
     iters: int = 30,
@@ -390,52 +526,19 @@ def optimize_se2_direct(
     Each step is refined twice through the factor, which removes the
     rounding that float32 Cholesky leaves on a chain-conditioned system.
     The lambda schedule is Nielsen's, and the loop stops on convergence:
-    the one host read of an LM iteration is that test. The returned stats'
-    `cg_iters` is the number of LM iterations run.
+    the one host read of an LM iteration is that test (on the card each LM
+    iteration replays two graphs, `utils.graphs.solve_loop`). The returned
+    stats' `cg_iters` is the number of LM iterations run.
     """
-    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
     dtype = g.poses.dtype
     free_p = (g.pose_mask & ~g.fixed).to(dtype)
     free_l = g.landmark_mask.to(dtype)
     free = torch.cat([free_p.repeat_interleave(3), free_l.repeat_interleave(2)])
-
-    trace = [linearize_se2(g, huber_delta).chi2]
-    poses, lms = g.poses, g.landmarks
-    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
-    nu = torch.full_like(lam, 2.0)
-    plan = _dense_plan(g)
-    k = 0
-    while k < iters:
-        lin = linearize_se2(g.with_poses(poses, lms), huber_delta)
-        H, b = _dense_system(g, lin, plan)
-        # gauge and mask projection: fixed or padded DOFs become identity rows
-        Hd = H.mul_(free[:, None] * free[None, :])
-        diag = Hd.diagonal()
-        diag.add_(lam * diag + (1.0 - free) + 1e-6 * free)
-        L = torch.linalg.cholesky_ex(Hd, check_errors=False).L
-        rhs = (-b * free)[:, None]
-        dx = torch.cholesky_solve(rhs, L)
-        for _ in range(2):
-            dx = dx + torch.cholesky_solve(rhs - Hd @ dx, L)
-        dx = dx[:, 0] * free
-        new_poses = poses + dx[: 3 * NP].reshape(NP, 3)
-        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
-        new_lms = lms + dx[3 * NP:].reshape(NL, 2)
-        del H, Hd, diag, L
-        lin_new = linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
-        ok = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < lin.chi2)
-        poses = torch.where(ok, new_poses, poses)
-        lms = torch.where(ok, new_lms, lms)
-        lam = torch.where(ok, torch.clamp_min(lam / 3.0, 1e-12), torch.clamp_max(lam * nu, 1e10))
-        nu = torch.where(ok, 2.0, torch.clamp_max(nu * 2.0, 64.0))
-        rel_drop = (lin.chi2 - lin_new.chi2) / torch.clamp_min(lin.chi2, 1e-30)
-        done = (ok & (rel_drop < 1e-9)) | (~ok & (lam >= 1e10))
-        trace.append(torch.where(ok, lin_new.chi2, lin.chi2))
-        k += 1
-        if bool(done):
-            break
-    trace += [trace[-1]] * (iters + 1 - len(trace))
-    return g.with_poses(poses, lms), OptStats(torch.stack(trace), lam, k)
+    state = _start(g, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, cg=False, stops=True)
+    solve = graphs.Solve(_direct_head, _direct_tail, _direct_report, stops=True)
+    st, (_, k) = graphs.solve_loop("optimize_se2_direct", solve, (g, (free, _dense_plan(g)), huber_delta), state,
+                                   iters)
+    return g.with_poses(st.poses, st.lms), OptStats(st.trace, st.lam, k)
 
 
 def chi2_se2(g: PoseGraph2D) -> torch.Tensor:
@@ -483,6 +586,78 @@ def linearize_se3(g: PoseGraph3D, huber_delta=None) -> Linearization:
     return Linearization(e, Ji, Jj, w, None, None, None, None, total)
 
 
+class _SE3Consts(NamedTuple):
+    free_p: torch.Tensor
+    I_seg: ss.SegmentIndex
+    J_seg: ss.SegmentIndex
+    chain: torch.Tensor | None
+    chain_i: ss.SegmentIndex | None
+
+
+def _se3_head(inputs, st: LMState):
+    g, c, prm = inputs
+    lin = linearize_se3(g.with_poses(st.poses), prm.huber_delta)
+    we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
+    gp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), c.I_seg) + ss.segment_sum(
+        torch.einsum("kdi,kd->ki", lin.Jj_pp, we), c.J_seg
+    )
+    Dp = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), c.I_seg) + ss.segment_sum(
+        _jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), c.J_seg
+    )
+    Dp_d = _damped(Dp, st.lam, c.free_p)
+    if prm.precond == "chain":
+        L_pre, U_pre = _chain_blocks(lin, c.chain, c.chain_i, c.free_p)
+        pre = (cr_factor(L_pre, Dp_d, U_pre),)
+    else:
+        pre = (_inv(Dp_d),)
+    mid = _Mid(lin, Dp, None, st.lam, pre, None)
+    carry, tol2 = cg_carry((-gp * c.free_p[:, None],), _se3_operators(((g, c, prm), mid))[1], 1e-8)
+    return mid._replace(tol2=tol2), carry
+
+
+def _se3_operators(cs):
+    (g, c, prm), mid = cs
+    I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
+    lin, Dp, lam, free_p = mid.lin, mid.Dp, mid.lam, c.free_p
+
+    def hvp(v):
+        (vp,) = v
+        vp = vp * free_p[:, None]
+        Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
+        WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
+        hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), c.I_seg) + ss.segment_sum(
+            torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), c.J_seg
+        )
+        hp = hp + lam * torch.einsum("kij,kj->ki", Dp, vp)
+        return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * vp,)
+
+    if prm.precond == "chain":
+        (fac,) = mid.pre
+
+        def pre(r):
+            return (cr_solve(fac, r[0]),)
+
+    else:
+        (Dp_inv,) = mid.pre
+
+        def pre(r):
+            return (torch.einsum("kij,kj->ki", Dp_inv, r[0]),)
+
+    return hvp, pre
+
+
+def _se3_tail(inputs, st: LMState, mid: _Mid, carry) -> LMState:
+    g, c, prm = inputs
+    (dp,) = carry.x
+    new_poses = _T_to_pose7(_pose7_to_T(st.poses) @ lie.se3_exp(dp * c.free_p[:, None]))
+    lin_new = linearize_se3(g.with_poses(new_poses), prm.huber_delta)
+    accept = lin_new.chi2 < mid.lin.chi2
+    poses = torch.where(accept, new_poses, st.poses)
+    lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
+    trace = trace_put(st.trace, st.k, torch.where(accept, lin_new.chi2, mid.lin.chi2))
+    return LMState(poses, None, lam, trace, st.k + 1, st.cg_total + carry.k)
+
+
 def optimize_se3(
     g: PoseGraph3D,
     iters: int = 10,
@@ -494,66 +669,21 @@ def optimize_se3(
     """LM-optimize an SE3 pose graph; updates are right-multiplied twists.
 
     precond: "jacobi" (the 6x6 block diagonal) or "chain" (the
-    block-tridiagonal odometry-chain factor by cyclic reduction).
+    block-tridiagonal odometry-chain factor by cyclic reduction). `iters`
+    LM iterations, run as `optimize_se2` runs them.
     """
     if precond not in PRECONDITIONERS:
         raise ValueError(f"precond must be one of {PRECONDITIONERS}, got {precond!r}")
-    dtype = g.poses.dtype
     NP = g.poses.shape[0]
-    I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
-    I_seg, J_seg = ss.SegmentIndex(I, NP), ss.SegmentIndex(J, NP)
-    free_p = (g.pose_mask & ~g.fixed).to(dtype)
-    if precond == "chain":
-        chain, chain_i = _chain(g)
-
-    trace = [linearize_se3(g, huber_delta).chi2]
-    poses = g.poses
-    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
-    cg_total = 0
-    for _ in range(iters):
-        lin = linearize_se3(g.with_poses(poses), huber_delta)
-        we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
-        gp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), I_seg) + ss.segment_sum(
-            torch.einsum("kdi,kd->ki", lin.Jj_pp, we), J_seg
-        )
-        Dp = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), I_seg) + ss.segment_sum(
-            _jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), J_seg
-        )
-
-        def hvp(v, lin=lin, Dp=Dp, lam=lam):
-            (vp,) = v
-            vp = vp * free_p[:, None]
-            Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
-            WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
-            hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), I_seg) + ss.segment_sum(
-                torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), J_seg
-            )
-            hp = hp + lam * torch.einsum("kij,kj->ki", Dp, vp)
-            return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * vp,)
-
-        Dp_d = _damped(Dp, lam, free_p)
-        if precond == "chain":
-            L_pre, U_pre = _chain_blocks(lin, chain, chain_i, free_p)
-            fac = cr_factor(L_pre, Dp_d, U_pre)
-
-            def pre(r, fac=fac):
-                return (cr_solve(fac, r[0]),)
-
-        else:
-            Dp_inv = _inv(Dp_d)
-
-            def pre(r, Dp_inv=Dp_inv):
-                return (torch.einsum("kij,kj->ki", Dp_inv, r[0]),)
-
-        (dp,), cg_k, _ = pcg(hvp, (-gp * free_p[:, None],), pre, max_iters=cg_iters, rtol=1e-8)
-        new_poses = _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dp * free_p[:, None]))
-        lin_new = linearize_se3(g.with_poses(new_poses), huber_delta)
-        accept = lin_new.chi2 < lin.chi2
-        poses = torch.where(accept, new_poses, poses)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
-        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
-        cg_total += cg_k
-    return g.with_poses(poses), OptStats(torch.stack(trace), lam, cg_total)
+    free_p = (g.pose_mask & ~g.fixed).to(g.poses.dtype)
+    chain, chain_i = _chain(g) if precond == "chain" else (None, None)
+    consts = _SE3Consts(free_p, ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP), chain,
+                        chain_i)
+    state = _start(g, linearize_se3(g, huber_delta).chi2, lm_lambda0, iters)
+    solve = graphs.Solve(_se3_head, _se3_tail, _cg_report, cg_loop(_se3_operators, lambda cs: cs[1].tol2, cg_iters))
+    st, (cg_total,) = graphs.solve_loop(f"optimize_se3 ({precond})", solve,
+                                        (g, consts, _Params(huber_delta, precond, cg_iters)), state, iters)
+    return g.with_poses(st.poses), OptStats(st.trace, st.lam, cg_total)
 
 
 def chi2_se3(g: PoseGraph3D) -> torch.Tensor:

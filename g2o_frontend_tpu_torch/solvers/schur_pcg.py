@@ -15,9 +15,11 @@ chain gives the Hessian an O(N^2) condition number.
    (`tridiag.py`), either with the full landmark arrow through Woodbury
    (while the dense 2NL x 2NL capacitance stays small) or with a per-pose
    Schur-corrected diagonal.
-3. **The gain-ratio (Nielsen) LM schedule** with a convergence exit: the
-   loop stops on convergence, and that test is the one host read of an LM
-   iteration beside PCG's reads.
+3. **The gain-ratio (Nielsen) LM schedule** with a convergence exit,
+   tested on the device. The LM iteration runs as `utils.graphs.solve_loop`
+   runs a solve (the JAX version's ``lax.while_loop``): on the card a graph
+   for the head, one for each block of CG steps and one for the tail, one
+   host read a CG block and one an LM iteration.
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ import torch
 
 from ..graph.store import PoseGraph2D
 from ..ops import segment_sum as ss
-from ..utils import lie
+from ..utils import graphs, lie
 from . import pose_graph as pg
-from .pcg import pcg
-from .tridiag import cr_factor, cr_solve
+from .pcg import cg_carry, cg_loop
+from .tridiag import CRFactor, cr_factor, cr_solve
 
 WOODBURY_MAX_DIM = 2048  # the largest 2 NL for which the Woodbury arrow is chosen
 
@@ -71,28 +73,53 @@ def _block_diag(blocks):
     return A.reshape(2 * NL, 2 * NL)
 
 
-def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
-    """(smv, precond, bs, recover_dl) for one damped linearization.
+class SchurConsts(NamedTuple):
+    """What a Schur solve fixes once: sizes and choices (static), masks and
+    the segment indices of its sums."""
 
-    smv applies the landmark-eliminated damped Schur operator
-    ``S_d = Hpp + lam diag(Hpp) - Hpl Hll_d^-1 Hlp`` to pose block-vectors;
-    precond applies ``M^-1``, M either T - V A^-1 V^T (the chain
-    tridiagonal with the exact landmark arrow, through Woodbury) or the
-    Schur-corrected chain tridiagonal; bs is the reduced right-hand side;
-    recover_dl back-substitutes the landmark increments.
-    """
-    NP, NL = consts["NP"], consts["NL"]
-    free_p, free_l = consts["free_p"], consts["free_l"]
-    has_pl = consts["has_pl"]
-    pose_k, lm_k = consts["pose_k"], consts["lm_k"]
-    seg = consts["seg"]
-    use_woodbury = consts["use_woodbury"]
+    NP: int
+    NL: int
+    has_pl: bool
+    use_woodbury: bool
+    free_p: torch.Tensor
+    free_l: torch.Tensor
+    pose_k: torch.Tensor | None
+    lm_k: torch.Tensor | None
+    seg: pg.EdgeSegments
+    arrow: ss.SegmentIndex | None
+    chain: torch.Tensor
+    chain_i: ss.SegmentIndex
+
+
+class SchurSystem(NamedTuple):
+    """One damped linearization's reduced system: the right-hand side, the
+    landmark blocks and the preconditioner's factors (None where unused)."""
+
+    bs: torch.Tensor  # (NP, 3) reduced right-hand side
+    C: torch.Tensor | None  # (EL, 3, 2) per-edge cross blocks Jp^T W Jl
+    Hll_inv: torch.Tensor | None  # (NL, 2, 2) damped landmark-block inverses
+    ybl: torch.Tensor | None  # (NL, 2)
+    diagDp: torch.Tensor  # (NP, 3)
+    zeros_l: torch.Tensor  # (NL, 2)
+    fac: CRFactor  # the damped chain tridiagonal (Schur-corrected without Woodbury)
+    V2: torch.Tensor | None  # (3 NP, 2 NL) the landmark arrow (Woodbury)
+    X2: torch.Tensor | None  # T^-1 V
+    K_lu: torch.Tensor | None  # the capacitance K's LU factor and pivots
+    K_piv: torch.Tensor | None
+
+
+def schur_system(gk: PoseGraph2D, lin, lam, consts: SchurConsts) -> SchurSystem:
+    """The reduced system of one damped linearization (`schur_operators`
+    applies it)."""
+    NP, NL = consts.NP, consts.NL
+    free_p, free_l, lm_k, seg = consts.free_p, consts.free_l, consts.lm_k, consts.seg
 
     gp, gl = pg._grad_se2(gk, lin, seg)
     Dp, Dl = pg._diag_blocks_se2(gk, lin, seg)
     bp = -gp * free_p[:, None]
 
-    if has_pl:
+    C = Hll_inv = ybl = None
+    if consts.has_pl:
         # per-edge cross block Jp^T W Jl (3x2) and the landmark-block inverse
         C = pg._jtwj(lin.Jp_pl, lin.w_pl, lin.Jl_pl)
         Hll_inv = pg._inv(_damped_blocks(Dl, lam, free_l, 2))
@@ -100,62 +127,87 @@ def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
         bs = bp - free_p[:, None] * ss.segment_sum(torch.einsum("kij,kj->ki", C, ybl[lm_k]), seg.pl_p)
         # per-pose Schur diagonal correction (exact when each (pose,
         # landmark) pair has one observation edge, as in g2o graphs)
-        corr = None if use_woodbury else ss.segment_sum(
+        corr = None if consts.use_woodbury else ss.segment_sum(
             torch.einsum("kij,kjl,kml->kim", C, Hll_inv[lm_k], C), seg.pl_p)
     else:
         bs, corr = bp, torch.zeros_like(Dp)
-
-    edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
     zeros_l = gk.poses.new_zeros((NL, 2))
     diagDp = torch.diagonal(Dp, dim1=-2, dim2=-1)
 
-    def smv(v):
-        vp = v[0] * free_p[:, None]
-        # the pose slot of the edge product with vl = 0 is Hpp v
-        hp, _ = edge_hvp((vp, zeros_l))
-        hp = hp + lam * diagDp * vp
-        if has_pl:
-            t = ss.segment_sum(torch.einsum("kji,kj->ki", C, vp[pose_k]), seg.pl_l)
-            y = torch.einsum("lij,lj->li", Hll_inv, t)
-            hp = hp - ss.segment_sum(torch.einsum("kij,kj->ki", C, y[lm_k]), seg.pl_p)
-        return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * v[0],)
-
     # T: the damped odometry chain, factored by cyclic reduction once per LM
     # iteration
-    L_pre, U_pre = pg._chain_blocks(lin, consts["chain"], consts["chain_i"], free_p)
-    if use_woodbury:
+    L_pre, U_pre = pg._chain_blocks(lin, consts.chain, consts.chain_i, free_p)
+    V2 = X2 = K_lu = K_piv = None
+    if consts.use_woodbury:
         # M = T - V A^-1 V^T, the chain with the FULL landmark arrow: exactly S
         # when Hpp has no off-chain blocks. M^-1 = T^-1 + T^-1 V K^-1 V^T T^-1
         # with K = A - V^T T^-1 V (2 NL x 2 NL, dense: landmarks are few)
         fac = cr_factor(L_pre, _damped_blocks(Dp, lam, free_p, 3), U_pre)
-        Vd = _landmark_arrow(C, consts["arrow"], free_p, NP, NL)
+        Vd = _landmark_arrow(C, consts.arrow, free_p, NP, NL)
         X = cr_solve(fac, Vd)  # T^-1 V, multi-column cyclic reduction
         # V and X as (3 NP, 2 NL) matrices: their products need no copies
         V2, X2 = Vd.reshape(3 * NP, 2 * NL), X.reshape(3 * NP, 2 * NL)
         K = _block_diag(_damped_blocks(Dl, lam, free_l, 2)) - V2.T @ X2
         K_lu, K_piv, _ = torch.linalg.lu_factor_ex(K)
-
-        def precond(r):
-            z = cr_solve(fac, r[0])
-            u = torch.linalg.lu_solve(K_lu, K_piv, (z.reshape(1, -1) @ V2).T)
-            return (z + (X2 @ u).reshape(NP, 3),)
-
     else:
         fac = cr_factor(L_pre, _damped_blocks(Dp - corr, lam, free_p, 3), U_pre)
+    return SchurSystem(bs, C, Hll_inv, ybl, diagDp, zeros_l, fac, V2, X2, K_lu, K_piv)
 
+
+def schur_operators(g: PoseGraph2D, lin, lam, sys: SchurSystem, consts: SchurConsts):
+    """(smv, precond, recover_dl) of a `SchurSystem`.
+
+    smv applies the landmark-eliminated damped Schur operator
+    ``S_d = Hpp + lam diag(Hpp) - Hpl Hll_d^-1 Hlp`` to pose block-vectors;
+    precond applies ``M^-1``, M either T - V A^-1 V^T (the chain
+    tridiagonal with the exact landmark arrow, through Woodbury) or the
+    Schur-corrected chain tridiagonal; recover_dl back-substitutes the
+    landmark increments. They launch nothing until called.
+    """
+    NP = consts.NP
+    free_p, free_l, pose_k, lm_k, seg = consts.free_p, consts.free_l, consts.pose_k, consts.lm_k, consts.seg
+    C, Hll_inv, fac = sys.C, sys.Hll_inv, sys.fac
+    edge_hvp = pg._hvp_edges_se2(g, lin, seg)
+
+    def smv(v):
+        vp = v[0] * free_p[:, None]
+        # the pose slot of the edge product with vl = 0 is Hpp v
+        hp, _ = edge_hvp((vp, sys.zeros_l))
+        hp = hp + lam * sys.diagDp * vp
+        if consts.has_pl:
+            t = ss.segment_sum(torch.einsum("kji,kj->ki", C, vp[pose_k]), seg.pl_l)
+            y = torch.einsum("lij,lj->li", Hll_inv, t)
+            hp = hp - ss.segment_sum(torch.einsum("kij,kj->ki", C, y[lm_k]), seg.pl_p)
+        return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * v[0],)
+
+    if consts.use_woodbury:
+        def precond(r):
+            z = cr_solve(fac, r[0])
+            u = torch.linalg.lu_solve(sys.K_lu, sys.K_piv, (z.reshape(1, -1) @ sys.V2).T)
+            return (z + (sys.X2 @ u).reshape(NP, 3),)
+
+    else:
         def precond(r):
             return (cr_solve(fac, r[0]),)
 
     def recover_dl(dp):
-        if not has_pl:
-            return zeros_l
+        if not consts.has_pl:
+            return sys.zeros_l
         t = ss.segment_sum(torch.einsum("kji,kj->ki", C, dp[pose_k]), seg.pl_l)
-        return (ybl - torch.einsum("lij,lj->li", Hll_inv, t)) * free_l[:, None]
+        return (sys.ybl - torch.einsum("lij,lj->li", Hll_inv, t)) * free_l[:, None]
 
-    return smv, precond, bs, recover_dl
+    return smv, precond, recover_dl
 
 
 def landmark_covariance_se2(g: PoseGraph2D, lam: float = 1e-6, huber_delta: float | None = None):
+    """`_landmark_covariance_se2`, the JAX package's jitted function: on the
+    card one captured stage (`utils.graphs.Stage`), captured at the second
+    call of a key so that a graph whose counts are seen once pays no
+    capture."""
+    return _COVARIANCE(g, lam, huber_delta)
+
+
+def _landmark_covariance_se2(g: PoseGraph2D, lam: float, huber_delta: float | None):
     """Joint landmark covariance blocks through the chain and the Woodbury
     arrow, a (NL, 2, NL, 2) tensor on the graph's device.
 
@@ -184,6 +236,69 @@ def landmark_covariance_se2(g: PoseGraph2D, lam: float = 1e-6, huber_delta: floa
     return pg._inv(K).reshape(NL, 2, NL, 2)
 
 
+_COVARIANCE = graphs.Stage("landmark_covariance_se2", _landmark_covariance_se2, second_call=True)
+
+
+class _Params(NamedTuple):
+    """A Schur solve's static parameters (part of its graphs' key)."""
+
+    huber_delta: float | None
+    tol: float
+    cg_rtol: float
+    cg_iters: int
+
+
+class _Mid(NamedTuple):
+    lin: pg.Linearization
+    sys: SchurSystem
+    lam: torch.Tensor
+    tol2: torch.Tensor
+
+
+def _head(inputs, st: pg.LMState):
+    """Linearize, build the reduced system, start CG."""
+    g, consts, prm = inputs
+    gk = g.with_poses(st.poses, st.lms)
+    lin = pg.linearize_se2(gk, prm.huber_delta)
+    sys = schur_system(gk, lin, st.lam, consts)
+    _, precond, _ = schur_operators(g, lin, st.lam, sys, consts)
+    carry, tol2 = cg_carry((sys.bs,), precond, prm.cg_rtol)
+    return _Mid(lin, sys, st.lam, tol2), carry
+
+
+def _operators(cs):
+    (g, consts, _), mid = cs
+    smv, precond, _ = schur_operators(g, mid.lin, mid.lam, mid.sys, consts)
+    return smv, precond
+
+
+def _tail(inputs, st: pg.LMState, mid: _Mid, carry) -> pg.LMState:
+    """Back-substitute the landmarks, relinearize, accept or reject, and
+    update lambda, nu, the trace and the convergence test."""
+    g, consts, prm = inputs
+    _, _, recover_dl = schur_operators(g, mid.lin, mid.lam, mid.sys, consts)
+    lin, free_p = mid.lin, consts.free_p
+    dp = carry.x[0] * free_p[:, None]
+    dl = recover_dl(dp)
+    new_poses = st.poses + dp
+    new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+    new_lms = st.lms + dl
+    lin_new = pg.linearize_se2(g.with_poses(new_poses, new_lms), prm.huber_delta)
+    accept = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < lin.chi2)
+    rel_drop = (lin.chi2 - lin_new.chi2) / torch.clamp_min(lin.chi2, 1e-30)
+    done = (accept & (rel_drop < prm.tol)) | (~accept & (st.lam >= 1e10))
+    lam, nu = (torch.where(accept, torch.clamp_min(st.lam / 3.0, 1e-12), torch.clamp_max(st.lam * st.nu, 1e10)),
+               torch.where(accept, 2.0, torch.clamp_max(st.nu * 2.0, 64.0)))
+    poses = torch.where(accept, new_poses, st.poses)
+    lms = torch.where(accept, new_lms, st.lms)
+    trace = pg.trace_put(st.trace, st.k, torch.where(accept, lin_new.chi2, lin.chi2))
+    return pg.LMState(poses, lms, lam, trace, st.k + 1, st.cg_total + carry.k, nu, done)
+
+
+def _report(st: pg.LMState):
+    return torch.stack([st.done.to(torch.int64), st.k, st.cg_total])
+
+
 def optimize_se2_schur(
     g: PoseGraph2D,
     iters: int = 200,
@@ -196,7 +311,14 @@ def optimize_se2_schur(
 ) -> tuple[PoseGraph2D, SchurStats]:
     """LM to convergence on the Schur-reduced pose system (see the module
     doc). `woodbury` forces a preconditioner; None chooses the Woodbury
-    arrow while 2 NL <= 2048."""
+    arrow while 2 NL <= 2048.
+
+    The LM iteration runs as `utils.graphs.solve_loop` runs a solve: a
+    head (linearization, reduced system, CG start), CG in blocks of
+    `pcg.BLOCK` masked steps with the JAX stopping test on the device, and
+    a tail (the step, accept / reject, lambda, the trace); on the card a
+    graph each, one host read a CG block and one an LM iteration (the
+    convergence test with the counts)."""
     NP, NL = g.poses.shape[0], g.landmarks.shape[0]
     dtype = g.poses.dtype
     free_p = (g.pose_mask & ~g.fixed).to(dtype)
@@ -205,37 +327,10 @@ def optimize_se2_schur(
     use_woodbury = (has_pl and 2 * NL <= WOODBURY_MAX_DIM) if woodbury is None else (woodbury and has_pl)
     chain, chain_i = pg._chain(g)
     pose_k, lm_k = (g.pl_ij[:, 0], g.pl_ij[:, 1]) if has_pl else (None, None)
-    consts = dict(NP=NP, NL=NL, free_p=free_p, free_l=free_l, has_pl=has_pl, pose_k=pose_k, lm_k=lm_k,
-                  seg=pg.edge_segments(g), arrow=_arrow_index(pose_k, lm_k, NP, NL) if use_woodbury else None,
-                  use_woodbury=use_woodbury, chain=chain, chain_i=chain_i)
-
-    trace = [pg.linearize_se2(g, huber_delta).chi2]
-    poses, lms = g.poses, g.landmarks
-    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
-    nu = torch.full_like(lam, 2.0)
-    k = cg_total = 0
-    while k < iters:
-        gk = g.with_poses(poses, lms)
-        lin = pg.linearize_se2(gk, huber_delta)
-        smv, precond, bs, recover_dl = build_schur_system(gk, lin, lam, consts)
-        (dp,), cg_k, _ = pcg(smv, (bs,), precond, max_iters=cg_iters, rtol=cg_rtol)
-        dp = dp * free_p[:, None]
-        dl = recover_dl(dp)
-        new_poses = poses + dp
-        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
-        new_lms = lms + dl
-        lin_new = pg.linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
-        accept = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < lin.chi2)
-        rel_drop = (lin.chi2 - lin_new.chi2) / torch.clamp_min(lin.chi2, 1e-30)
-        done = (accept & (rel_drop < tol)) | (~accept & (lam >= 1e10))
-        lam, nu = (torch.where(accept, torch.clamp_min(lam / 3.0, 1e-12), torch.clamp_max(lam * nu, 1e10)),
-                   torch.where(accept, 2.0, torch.clamp_max(nu * 2.0, 64.0)))
-        poses = torch.where(accept, new_poses, poses)
-        lms = torch.where(accept, new_lms, lms)
-        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
-        k += 1
-        cg_total += cg_k
-        if bool(done):
-            break
-    trace += [trace[-1]] * (iters + 1 - len(trace))
-    return g.with_poses(poses, lms), SchurStats(torch.stack(trace), lam, cg_total, k)
+    consts = SchurConsts(NP, NL, has_pl, use_woodbury, free_p, free_l, pose_k, lm_k, pg.edge_segments(g),
+                         _arrow_index(pose_k, lm_k, NP, NL) if use_woodbury else None, chain, chain_i)
+    state = pg._start(g, pg.linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, stops=True)
+    solve = graphs.Solve(_head, _tail, _report, cg_loop(_operators, lambda cs: cs[1].tol2, cg_iters), stops=True)
+    st, (_, k, cg_total) = graphs.solve_loop("optimize_se2_schur", solve,
+                                             (g, consts, _Params(huber_delta, tol, cg_rtol, cg_iters)), state, iters)
+    return g.with_poses(st.poses, st.lms), SchurStats(st.trace, st.lam, cg_total, k)

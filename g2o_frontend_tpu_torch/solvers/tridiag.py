@@ -10,6 +10,10 @@ once per LM iteration, apply per CG iteration.
 
 System: L[i] x[i-1] + D[i] x[i] + U[i] x[i+1] = r[i]; L and U are stored
 independently (symmetry is not assumed).
+
+The loops of `cr_factor` and `cr_solve` depend on shapes only and read
+nothing from the host, so the solvers' CUDA graphs capture them as they
+are (a Schur solve's head and each CG block).
 """
 from __future__ import annotations
 

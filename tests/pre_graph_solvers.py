@@ -1,0 +1,408 @@
+"""The 2D and 3D backend's LM loops as they were before they ran through
+``utils/graphs.solve_loop``: verbatim copies of the eager loops (PCG's
+stopping test and the convergence tests read on the host), which
+``tests/test_torch_solver_graphs.py`` holds the port's solvers to bit for
+bit. The helpers they call are the port's own."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from g2o_frontend_tpu_torch.graph.store import PoseGraph2D, PoseGraph3D
+from g2o_frontend_tpu_torch.ops import segment_sum as ss
+from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+from g2o_frontend_tpu_torch.solvers.pose_graph import (PRECONDITIONERS, OptStats, _block_jacobi_precond, _chain,
+                                                       _chain_blocks, _compose_hvp, _damped, _damped_inverse,
+                                                       _dense_plan, _dense_system, _diag_blocks_se2, _grad_se2,
+                                                       _hvp_edges_se2, _inv, _jtwj, _pose7_to_T, _T_to_pose7,
+                                                       edge_segments, linearize_se2, linearize_se3)
+from g2o_frontend_tpu_torch.solvers.schur_pcg import (WOODBURY_MAX_DIM, SchurStats, _arrow_index, _block_diag,
+                                                      _damped_blocks, _landmark_arrow)
+from g2o_frontend_tpu_torch.solvers.tridiag import cr_factor, cr_solve
+from g2o_frontend_tpu_torch.utils import lie
+
+
+def _dot(a, b):
+    return sum((x * y).sum() for x, y in zip(a, b))
+
+
+def _axpy(alpha, x, y):
+    """alpha * x + y"""
+    return tuple(alpha * xl + yl for xl, yl in zip(x, y))
+
+
+def pcg(hvp: Callable, b, precond: Callable, *, max_iters: int = 100, rtol: float = 1e-6,
+        tree_dot: Callable | None = None):
+    """Solve ``H x = b`` with preconditioned CG.
+
+    Args:
+      hvp: function v -> H @ v on the block vector (a tuple of tensors).
+      b: right-hand side, a tuple of tensors.
+      precond: function r -> M^{-1} r (e.g. block-Jacobi).
+      max_iters: the most iterations.
+      rtol: relative residual tolerance on sqrt(r.z).
+      tree_dot: optional replacement inner product, returning a 0-dim
+        tensor: a distributed solver passes a dot that sums over the shards
+        of its block vectors (`parallel/partitioned_pose_graph.py`), so
+        that every shard reads the same stopping test.
+
+    Returns:
+      (x, iters, final_rz): iters is a Python int, final_rz a 0-dim tensor.
+    """
+    if tree_dot is None:
+        tree_dot = _dot
+    x = tuple(torch.zeros_like(bl) for bl in b)
+    r = tuple(b)  # r = b - H x0 with x0 = 0
+    z = precond(r)
+    p = z
+    rz = tree_dot(r, z)
+    tol2 = rtol * rtol * torch.clamp_min(rz, 1e-30)
+    k = 0
+    while k < max_iters and bool(rz > tol2):
+        hp = hvp(p)
+        php = tree_dot(p, hp)
+        # guard against a non-PD direction (should not happen with LM damping)
+        alpha = torch.where(php > 0, rz / torch.where(php > 0, php, 1e-30), 0.0)
+        x = _axpy(alpha, p, x)
+        r = _axpy(-alpha, hp, r)
+        z = precond(r)
+        rz_new = tree_dot(r, z)
+        beta = rz_new / torch.where(rz > 0, rz, 1e-30)
+        p = _axpy(beta, p, z)
+        rz = rz_new
+        k += 1
+    return x, k, rz
+
+
+def build_schur_system(gk: PoseGraph2D, lin, lam, consts):
+    """(smv, precond, bs, recover_dl) for one damped linearization.
+
+    smv applies the landmark-eliminated damped Schur operator
+    ``S_d = Hpp + lam diag(Hpp) - Hpl Hll_d^-1 Hlp`` to pose block-vectors;
+    precond applies ``M^-1``, M either T - V A^-1 V^T (the chain
+    tridiagonal with the exact landmark arrow, through Woodbury) or the
+    Schur-corrected chain tridiagonal; bs is the reduced right-hand side;
+    recover_dl back-substitutes the landmark increments.
+    """
+    NP, NL = consts["NP"], consts["NL"]
+    free_p, free_l = consts["free_p"], consts["free_l"]
+    has_pl = consts["has_pl"]
+    pose_k, lm_k = consts["pose_k"], consts["lm_k"]
+    seg = consts["seg"]
+    use_woodbury = consts["use_woodbury"]
+
+    gp, gl = pg._grad_se2(gk, lin, seg)
+    Dp, Dl = pg._diag_blocks_se2(gk, lin, seg)
+    bp = -gp * free_p[:, None]
+
+    if has_pl:
+        # per-edge cross block Jp^T W Jl (3x2) and the landmark-block inverse
+        C = pg._jtwj(lin.Jp_pl, lin.w_pl, lin.Jl_pl)
+        Hll_inv = pg._inv(_damped_blocks(Dl, lam, free_l, 2))
+        ybl = torch.einsum("lij,lj->li", Hll_inv, -gl * free_l[:, None])
+        bs = bp - free_p[:, None] * ss.segment_sum(torch.einsum("kij,kj->ki", C, ybl[lm_k]), seg.pl_p)
+        # per-pose Schur diagonal correction (exact when each (pose,
+        # landmark) pair has one observation edge, as in g2o graphs)
+        corr = None if use_woodbury else ss.segment_sum(
+            torch.einsum("kij,kjl,kml->kim", C, Hll_inv[lm_k], C), seg.pl_p)
+    else:
+        bs, corr = bp, torch.zeros_like(Dp)
+
+    edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
+    zeros_l = gk.poses.new_zeros((NL, 2))
+    diagDp = torch.diagonal(Dp, dim1=-2, dim2=-1)
+
+    def smv(v):
+        vp = v[0] * free_p[:, None]
+        # the pose slot of the edge product with vl = 0 is Hpp v
+        hp, _ = edge_hvp((vp, zeros_l))
+        hp = hp + lam * diagDp * vp
+        if has_pl:
+            t = ss.segment_sum(torch.einsum("kji,kj->ki", C, vp[pose_k]), seg.pl_l)
+            y = torch.einsum("lij,lj->li", Hll_inv, t)
+            hp = hp - ss.segment_sum(torch.einsum("kij,kj->ki", C, y[lm_k]), seg.pl_p)
+        return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * v[0],)
+
+    # T: the damped odometry chain, factored by cyclic reduction once per LM
+    # iteration
+    L_pre, U_pre = pg._chain_blocks(lin, consts["chain"], consts["chain_i"], free_p)
+    if use_woodbury:
+        # M = T - V A^-1 V^T, the chain with the FULL landmark arrow: exactly S
+        # when Hpp has no off-chain blocks. M^-1 = T^-1 + T^-1 V K^-1 V^T T^-1
+        # with K = A - V^T T^-1 V (2 NL x 2 NL, dense: landmarks are few)
+        fac = cr_factor(L_pre, _damped_blocks(Dp, lam, free_p, 3), U_pre)
+        Vd = _landmark_arrow(C, consts["arrow"], free_p, NP, NL)
+        X = cr_solve(fac, Vd)  # T^-1 V, multi-column cyclic reduction
+        # V and X as (3 NP, 2 NL) matrices: their products need no copies
+        V2, X2 = Vd.reshape(3 * NP, 2 * NL), X.reshape(3 * NP, 2 * NL)
+        K = _block_diag(_damped_blocks(Dl, lam, free_l, 2)) - V2.T @ X2
+        K_lu, K_piv, _ = torch.linalg.lu_factor_ex(K)
+
+        def precond(r):
+            z = cr_solve(fac, r[0])
+            u = torch.linalg.lu_solve(K_lu, K_piv, (z.reshape(1, -1) @ V2).T)
+            return (z + (X2 @ u).reshape(NP, 3),)
+
+    else:
+        fac = cr_factor(L_pre, _damped_blocks(Dp - corr, lam, free_p, 3), U_pre)
+
+        def precond(r):
+            return (cr_solve(fac, r[0]),)
+
+    def recover_dl(dp):
+        if not has_pl:
+            return zeros_l
+        t = ss.segment_sum(torch.einsum("kji,kj->ki", C, dp[pose_k]), seg.pl_l)
+        return (ybl - torch.einsum("lij,lj->li", Hll_inv, t)) * free_l[:, None]
+
+    return smv, precond, bs, recover_dl
+
+
+def optimize_se2_schur(
+    g: PoseGraph2D,
+    iters: int = 200,
+    cg_iters: int = 250,
+    lm_lambda0: float = 1e-6,
+    huber_delta: float | None = None,
+    tol: float = 1e-9,
+    cg_rtol: float = 1e-6,
+    woodbury: bool | None = None,
+) -> tuple[PoseGraph2D, SchurStats]:
+    """LM to convergence on the Schur-reduced pose system (see the module
+    doc). `woodbury` forces a preconditioner; None chooses the Woodbury
+    arrow while 2 NL <= 2048."""
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    dtype = g.poses.dtype
+    free_p = (g.pose_mask & ~g.fixed).to(dtype)
+    free_l = g.landmark_mask.to(dtype)
+    has_pl = g.pl_ij.shape[0] > 0
+    use_woodbury = (has_pl and 2 * NL <= WOODBURY_MAX_DIM) if woodbury is None else (woodbury and has_pl)
+    chain, chain_i = pg._chain(g)
+    pose_k, lm_k = (g.pl_ij[:, 0], g.pl_ij[:, 1]) if has_pl else (None, None)
+    consts = dict(NP=NP, NL=NL, free_p=free_p, free_l=free_l, has_pl=has_pl, pose_k=pose_k, lm_k=lm_k,
+                  seg=pg.edge_segments(g), arrow=_arrow_index(pose_k, lm_k, NP, NL) if use_woodbury else None,
+                  use_woodbury=use_woodbury, chain=chain, chain_i=chain_i)
+
+    trace = [pg.linearize_se2(g, huber_delta).chi2]
+    poses, lms = g.poses, g.landmarks
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
+    nu = torch.full_like(lam, 2.0)
+    k = cg_total = 0
+    while k < iters:
+        gk = g.with_poses(poses, lms)
+        lin = pg.linearize_se2(gk, huber_delta)
+        smv, precond, bs, recover_dl = build_schur_system(gk, lin, lam, consts)
+        (dp,), cg_k, _ = pcg(smv, (bs,), precond, max_iters=cg_iters, rtol=cg_rtol)
+        dp = dp * free_p[:, None]
+        dl = recover_dl(dp)
+        new_poses = poses + dp
+        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+        new_lms = lms + dl
+        lin_new = pg.linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
+        accept = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < lin.chi2)
+        rel_drop = (lin.chi2 - lin_new.chi2) / torch.clamp_min(lin.chi2, 1e-30)
+        done = (accept & (rel_drop < tol)) | (~accept & (lam >= 1e10))
+        lam, nu = (torch.where(accept, torch.clamp_min(lam / 3.0, 1e-12), torch.clamp_max(lam * nu, 1e10)),
+                   torch.where(accept, 2.0, torch.clamp_max(nu * 2.0, 64.0)))
+        poses = torch.where(accept, new_poses, poses)
+        lms = torch.where(accept, new_lms, lms)
+        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
+        k += 1
+        cg_total += cg_k
+        if bool(done):
+            break
+    trace += [trace[-1]] * (iters + 1 - len(trace))
+    return g.with_poses(poses, lms), SchurStats(torch.stack(trace), lam, cg_total, k)
+
+
+def optimize_se2(
+    g: PoseGraph2D,
+    iters: int = 10,
+    cg_iters: int = 100,
+    lm_lambda0: float = 1e-4,
+    huber_delta: float | None = None,
+    precond: str = "jacobi",
+) -> tuple[PoseGraph2D, OptStats]:
+    """LM-optimize an SE2 pose graph (poses and landmarks).
+
+    precond: "jacobi" (the point-block diagonal) or "chain" (the
+    block-tridiagonal odometry-chain factor by cyclic reduction on the pose
+    block, block-Jacobi on the landmarks).
+    """
+    if precond not in PRECONDITIONERS:
+        raise ValueError(f"precond must be one of {PRECONDITIONERS}, got {precond!r}")
+    dtype = g.poses.dtype
+    free_p = (g.pose_mask & ~g.fixed).to(dtype)
+    free_l = g.landmark_mask.to(dtype)
+    if precond == "chain":
+        chain, chain_i = _chain(g)
+    seg = edge_segments(g)
+
+    trace = [linearize_se2(g, huber_delta).chi2]
+    poses, lms = g.poses, g.landmarks
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
+    cg_total = 0
+    for _ in range(iters):
+        gk = g.with_poses(poses, lms)
+        lin = linearize_se2(gk, huber_delta)
+        gp, gl = _grad_se2(gk, lin, seg)
+        Dp, Dl = _diag_blocks_se2(gk, lin, seg)
+        hvp = _compose_hvp(_hvp_edges_se2(gk, lin, seg), free_p, free_l, lam, Dp, Dl)
+        if precond == "chain":
+            L_pre, U_pre = _chain_blocks(lin, chain, chain_i, free_p)
+            fac, Dl_inv = cr_factor(L_pre, _damped(Dp, lam, free_p), U_pre), _damped_inverse(Dl, lam, free_l)
+
+            def pre(r, fac=fac, Dl_inv=Dl_inv):
+                return cr_solve(fac, r[0]), torch.einsum("kij,kj->ki", Dl_inv, r[1])
+
+        else:
+            pre = _block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
+        (dp, dl), cg_k, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), pre, max_iters=cg_iters,
+                                rtol=1e-8)
+        new_poses = poses + dp * free_p[:, None]
+        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+        new_lms = lms + dl * free_l[:, None]
+        lin_new = linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
+        accept = lin_new.chi2 < lin.chi2
+        poses = torch.where(accept, new_poses, poses)
+        lms = torch.where(accept, new_lms, lms)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
+        cg_total += cg_k
+    return g.with_poses(poses, lms), OptStats(torch.stack(trace), lam, cg_total)
+
+
+def optimize_se2_direct(
+    g: PoseGraph2D,
+    iters: int = 30,
+    lm_lambda0: float = 1e-6,
+    huber_delta: float | None = None,
+) -> tuple[PoseGraph2D, OptStats]:
+    """LM with dense Cholesky solves: exact Newton steps.
+
+    Truncated PCG steps converge slowly on long-chain graphs with sparse
+    loop closures; a dense factor of the full system takes the exact step
+    while the (D, D) float32 Hessian fits the device (21,662 DOF: 1.9 GB).
+    Each step is refined twice through the factor, which removes the
+    rounding that float32 Cholesky leaves on a chain-conditioned system.
+    The lambda schedule is Nielsen's, and the loop stops on convergence:
+    the one host read of an LM iteration is that test. The returned stats'
+    `cg_iters` is the number of LM iterations run.
+    """
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    dtype = g.poses.dtype
+    free_p = (g.pose_mask & ~g.fixed).to(dtype)
+    free_l = g.landmark_mask.to(dtype)
+    free = torch.cat([free_p.repeat_interleave(3), free_l.repeat_interleave(2)])
+
+    trace = [linearize_se2(g, huber_delta).chi2]
+    poses, lms = g.poses, g.landmarks
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
+    nu = torch.full_like(lam, 2.0)
+    plan = _dense_plan(g)
+    k = 0
+    while k < iters:
+        lin = linearize_se2(g.with_poses(poses, lms), huber_delta)
+        H, b = _dense_system(g, lin, plan)
+        # gauge and mask projection: fixed or padded DOFs become identity rows
+        Hd = H.mul_(free[:, None] * free[None, :])
+        diag = Hd.diagonal()
+        diag.add_(lam * diag + (1.0 - free) + 1e-6 * free)
+        L = torch.linalg.cholesky_ex(Hd, check_errors=False).L
+        rhs = (-b * free)[:, None]
+        dx = torch.cholesky_solve(rhs, L)
+        for _ in range(2):
+            dx = dx + torch.cholesky_solve(rhs - Hd @ dx, L)
+        dx = dx[:, 0] * free
+        new_poses = poses + dx[: 3 * NP].reshape(NP, 3)
+        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+        new_lms = lms + dx[3 * NP:].reshape(NL, 2)
+        del H, Hd, diag, L
+        lin_new = linearize_se2(g.with_poses(new_poses, new_lms), huber_delta)
+        ok = torch.isfinite(lin_new.chi2) & (lin_new.chi2 < lin.chi2)
+        poses = torch.where(ok, new_poses, poses)
+        lms = torch.where(ok, new_lms, lms)
+        lam = torch.where(ok, torch.clamp_min(lam / 3.0, 1e-12), torch.clamp_max(lam * nu, 1e10))
+        nu = torch.where(ok, 2.0, torch.clamp_max(nu * 2.0, 64.0))
+        rel_drop = (lin.chi2 - lin_new.chi2) / torch.clamp_min(lin.chi2, 1e-30)
+        done = (ok & (rel_drop < 1e-9)) | (~ok & (lam >= 1e10))
+        trace.append(torch.where(ok, lin_new.chi2, lin.chi2))
+        k += 1
+        if bool(done):
+            break
+    trace += [trace[-1]] * (iters + 1 - len(trace))
+    return g.with_poses(poses, lms), OptStats(torch.stack(trace), lam, k)
+
+
+def optimize_se3(
+    g: PoseGraph3D,
+    iters: int = 10,
+    cg_iters: int = 100,
+    lm_lambda0: float = 1e-4,
+    huber_delta: float | None = None,
+    precond: str = "jacobi",
+) -> tuple[PoseGraph3D, OptStats]:
+    """LM-optimize an SE3 pose graph; updates are right-multiplied twists.
+
+    precond: "jacobi" (the 6x6 block diagonal) or "chain" (the
+    block-tridiagonal odometry-chain factor by cyclic reduction).
+    """
+    if precond not in PRECONDITIONERS:
+        raise ValueError(f"precond must be one of {PRECONDITIONERS}, got {precond!r}")
+    dtype = g.poses.dtype
+    NP = g.poses.shape[0]
+    I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
+    I_seg, J_seg = ss.SegmentIndex(I, NP), ss.SegmentIndex(J, NP)
+    free_p = (g.pose_mask & ~g.fixed).to(dtype)
+    if precond == "chain":
+        chain, chain_i = _chain(g)
+
+    trace = [linearize_se3(g, huber_delta).chi2]
+    poses = g.poses
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=g.poses.device)
+    cg_total = 0
+    for _ in range(iters):
+        lin = linearize_se3(g.with_poses(poses), huber_delta)
+        we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
+        gp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), I_seg) + ss.segment_sum(
+            torch.einsum("kdi,kd->ki", lin.Jj_pp, we), J_seg
+        )
+        Dp = ss.segment_sum(_jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), I_seg) + ss.segment_sum(
+            _jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp), J_seg
+        )
+
+        def hvp(v, lin=lin, Dp=Dp, lam=lam):
+            (vp,) = v
+            vp = vp * free_p[:, None]
+            Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
+            WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
+            hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), I_seg) + ss.segment_sum(
+                torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), J_seg
+            )
+            hp = hp + lam * torch.einsum("kij,kj->ki", Dp, vp)
+            return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * vp,)
+
+        Dp_d = _damped(Dp, lam, free_p)
+        if precond == "chain":
+            L_pre, U_pre = _chain_blocks(lin, chain, chain_i, free_p)
+            fac = cr_factor(L_pre, Dp_d, U_pre)
+
+            def pre(r, fac=fac):
+                return (cr_solve(fac, r[0]),)
+
+        else:
+            Dp_inv = _inv(Dp_d)
+
+            def pre(r, Dp_inv=Dp_inv):
+                return (torch.einsum("kij,kj->ki", Dp_inv, r[0]),)
+
+        (dp,), cg_k, _ = pcg(hvp, (-gp * free_p[:, None],), pre, max_iters=cg_iters, rtol=1e-8)
+        new_poses = _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dp * free_p[:, None]))
+        lin_new = linearize_se3(g.with_poses(new_poses), huber_delta)
+        accept = lin_new.chi2 < lin.chi2
+        poses = torch.where(accept, new_poses, poses)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
+        cg_total += cg_k
+    return g.with_poses(poses), OptStats(torch.stack(trace), lam, cg_total)

@@ -20,10 +20,21 @@ timed against the eager bodies.
    of a call. Then every captured key with its capture ms, the bytes it
    added to the shared pool and its static inputs.
 
+3. The solvers (`--solvers` runs them alone): `check_solvers` on a small
+   world and at victoriaPark's counts (Schur with and without the
+   Woodbury arrow, `optimize_se2` jacobi and chain, `optimize_se3` jacobi
+   and chain, `optimize_se2_direct`, `landmark_covariance_se2`): three
+   graphed calls of each (the key seen once, its capture, a replay)
+   bit-equal to its "eager" mode, launches under replay equal to its
+   masked steps run eagerly, host reads of both;
+   `check_solver_capture_failure`; `block_sweep`, `pcg.BLOCK` over 1, 4,
+   8, 16 and 32 on the Schur and the pose-only chain solve; then each
+   solver graphed against eager in turns (`solve_turns`).
+
 One JSON line per measurement. Run from the repository root on a machine
 with a CUDA card (the kernels are built from the checkout):
 
-    python3 tools/graph_probe.py [--no-timing]
+    python3 tools/graph_probe.py [--no-timing] [--solvers]
 """
 import argparse
 import json
@@ -225,6 +236,185 @@ def check_capture_failure(x):
     raise CheckFailure("a body that reads the host was captured without an error")
 
 
+# -- the solvers (solvers/pcg, pose_graph, schur_pcg through graphs.solve_loop) --------------------
+
+# phase 12's world (victoriaPark's counts, 21,662 DOF) and caps, and a small one for the card tests
+VICTORIA = dict(n_poses=7120, n_landmarks=151, world_size=60.0, seed=0)
+SMALL = dict(n_poses=60, n_landmarks=12, world_size=12.0, seed=3)
+SCHUR_CAPS = dict(iters=16, cg_iters=200, lm_lambda0=1e-3)
+SMALL_SCHUR_CAPS = dict(iters=6, cg_iters=40, lm_lambda0=1e-3)
+BLOCKS = (1, 4, 8, 16, 32)
+
+
+def solver_worlds(device, small=True):
+    """SE2 graphs with and without landmarks (victoriaPark's counts, or a
+    60-pose world) and an SE3 graph (bench.py's 300-pose world, or 50
+    poses)."""
+    from g2o_frontend_tpu_torch.graph.store import graph2d_from_log
+    from g2o_frontend_tpu_torch.slam.simulator import Simulator3DConfig, SimulatorConfig, simulate, simulate_se3
+
+    world = simulate(SimulatorConfig(**(SMALL if small else VICTORIA)))
+    se3 = (Simulator3DConfig(n_poses=50, world_size=6.0, closure_min_gap=10, seed=2) if small else
+           Simulator3DConfig(n_poses=300, seed=0, world_size=20.0, closure_min_gap=50, closure_radius=3.5,
+                             closure_prob=0.9))
+    return dict(landmarks=graph2d_from_log(world.to_g2o_log(), device=device)[0],
+                pose_only=graph2d_from_log(world.to_g2o_log(with_landmarks=False), device=device)[0],
+                se3=simulate_se3(se3, device=device)[0])
+
+
+def solver_cases(w, small=True):
+    """name -> a call of one public solver on `solver_worlds`' graphs."""
+    from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+    from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+
+    g, g0, g3 = w["landmarks"], w["pose_only"], w["se3"]
+    caps = SMALL_SCHUR_CAPS if small else SCHUR_CAPS
+    pcg_caps = dict(iters=4, cg_iters=30) if small else dict(iters=10, cg_iters=60)
+    cases = {f"optimize_se2_schur, woodbury {wb}": (lambda wb=wb: sp.optimize_se2_schur(g, woodbury=wb, **caps))
+             for wb in (True, False)}
+    for p in ("jacobi", "chain"):
+        cases[f"optimize_se2 {p}"] = lambda p=p: pg.optimize_se2(g0 if not small else g, precond=p, **pcg_caps)
+        cases[f"optimize_se3 {p}"] = lambda p=p: pg.optimize_se3(g3, iters=10 if not small else 3,
+                                                                  cg_iters=100 if not small else 30, precond=p)
+    cases["optimize_se2_direct"] = lambda: pg.optimize_se2_direct(g, iters=8 if small else 30)
+    cases["landmark_covariance_se2"] = lambda: sp.landmark_covariance_se2(g)
+    return cases
+
+
+def solver_leaves(out):
+    """The tensors and counts of a solver's result, for `same_bits`."""
+    if torch.is_tensor(out):
+        return [out]
+    gk, st = out
+    rest = [gk.landmarks] if hasattr(gk, "landmarks") else []
+    counts = [torch.tensor([v]) for v in st if isinstance(v, int)]
+    return [gk.poses] + rest + [t for t in st if torch.is_tensor(t)] + counts
+
+
+def check_solvers(device, small=True, errors=None, cases=None):
+    """Each solver's graphed calls (the first with its key: eager head and
+    tail, its CG blocks through a graph; the second, which captures the
+    chain; the third, a replay) bit-equal to one another and to the solve
+    in "eager" mode (the eager port: a host read a CG iteration), and its
+    segment-sum launches under replay equal to a run of the same masked
+    steps eagerly ("masked" mode). Returns {name: (graph launches, eager
+    launches, host reads graphed, host reads eager)}."""
+    from g2o_frontend_tpu_torch.ops import segment_sum as ss
+
+    out = {}
+    for name, fn in (cases or solver_cases(solver_worlds(device, small), small)).items():
+        try:
+            runs = [solver_leaves(fn()) for _ in range(2)]
+            ss.launches, graphs.host_reads = 0, 0
+            runs.append(solver_leaves(fn()))
+            n_graph, reads_graph = ss.launches, graphs.host_reads
+            with graphs.mode("masked"):
+                ss.launches = 0
+                masked = solver_leaves(fn())
+                n_masked = ss.launches
+            with graphs.mode("eager"):
+                ss.launches, graphs.host_reads = 0, 0
+                eager = solver_leaves(fn())
+                n_eager, reads_eager = ss.launches, graphs.host_reads
+            for i, r in enumerate(runs):
+                check(same_bits(r, eager), f"{name}: graphed call {i + 1} differs from the eager mode")
+            check(same_bits(masked, eager), f"{name}: the masked mode differs from the eager mode")
+            check(n_graph == n_masked, f"{name}: a replayed solve counted {n_graph} launches, its masked steps "
+                  f"run eagerly {n_masked}")
+            out[name] = (n_graph, n_eager, reads_graph, reads_eager)
+        except (CheckFailure, RuntimeError) as exc:
+            if errors is None:
+                raise
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+    return out
+
+
+def check_solver_capture_failure(device):
+    """A solve whose head reads the host cannot be captured: its second call
+    (the chain's capture) raises `CaptureError` naming the piece and the
+    line, and keeps no chain."""
+    x = torch.arange(8.0, device=device)
+
+    def head(inputs, st):
+        return inputs * float(st.sum()), None  # reads the host
+
+    solve = graphs.Solve(head, lambda inputs, st, mid, carry: st + mid, lambda st: st[:1].long())
+    graphs.solve_loop("reads the host", solve, x, x, 2)
+    try:
+        graphs.solve_loop("reads the host", solve, x, x, 2)
+    except graphs.CaptureError as exc:
+        check("reads the host: head" in str(exc) and "in head" in str(exc), f"the error names no line: {exc}")
+        check(not any(k[0] == "reads the host" for k in graphs._CHAINS), "a failed capture was kept")
+        return str(exc)
+    raise CheckFailure("a head that reads the host was captured without an error")
+
+
+def solve_turns(name, fn, n=1):
+    """A whole solve graphed against its eager mode in turns (eager, graph,
+    graph, eager), each by one pair of CUDA events (n=1) or the median of
+    n; the graphed key captured before."""
+    fn()
+    fn()
+
+    def eager():
+        with graphs.mode("eager"):
+            return fn()
+
+    e1, g1, g2, e2 = (float(np.median(event_ms(f, n))) for f in (eager, fn, fn, eager))
+    return {"solve": name, "graph_ms": min(g1, g2), "eager_ms": min(e1, e2), "graph_runs_ms": [g1, g2],
+            "eager_runs_ms": [e1, e2], "speedup": min(e1, e2) / min(g1, g2)}
+
+
+def event_ms(fn, runs):
+    """Per-run milliseconds of `fn` by CUDA events, no warm-up call."""
+    times = []
+    for _ in range(runs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return times
+
+
+def block_sweep(device, blocks=BLOCKS):
+    """`pcg.BLOCK` in turns over `blocks` on the Schur solve at victoriaPark's
+    counts and on the pose-only chain-preconditioned solve: for each B the
+    whole graphed solve by CUDA events (the key captured before: the
+    lesser of two passes, forward then backward), the host reads a solve
+    and the masked CG steps beyond the eager count."""
+    from g2o_frontend_tpu_torch.solvers import pcg
+    from g2o_frontend_tpu_torch.solvers import pose_graph as pg
+    from g2o_frontend_tpu_torch.solvers import schur_pcg as sp
+
+    w = solver_worlds(device, small=False)
+    solves = {"schur": lambda: sp.optimize_se2_schur(w["landmarks"], **SCHUR_CAPS),
+              "se2 chain": lambda: pg.optimize_se2(w["pose_only"], iters=10, cg_iters=60, precond="chain")}
+    rows, before = [], pcg.BLOCK
+    try:
+        for name, fn in solves.items():
+            times, reads, outs = {}, {}, {}
+            for order in (blocks, tuple(reversed(blocks))):
+                for b in order:
+                    pcg.BLOCK = b
+                    if b not in times:
+                        fn()
+                        fn()  # the key (its block is part of it) captured
+                    graphs.host_reads = 0
+                    box = []
+                    times.setdefault(b, []).append(event_ms(lambda: box.append(fn()), 1)[0])
+                    reads[b], outs[b] = graphs.host_reads, box[0][1]
+            for b in blocks:
+                lm = getattr(outs[b], "lm_iters", 10)
+                rows.append({"solve": name, "block": b, "ms": min(times[b]), "runs_ms": times[b],
+                             "host_reads": reads[b], "cg_iters": outs[b].cg_iters, "lm_iters": lm,
+                             "masked_steps_at_most": lm * (b - 1)})
+    finally:
+        pcg.BLOCK = before
+    return rows
+
+
 def turns(name, graphed, eager, n):
     """Graph and eager in turns (eager, graph, graph, eager), each the
     median ms of n whole calls by CUDA events; device ms by torch.profiler
@@ -262,6 +452,8 @@ def timing(device, n=20):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-timing", action="store_true", help="run the checks only")
+    ap.add_argument("--solvers", action="store_true", help="the solvers only: their checks on a small world and at "
+                    "victoriaPark's counts, the failed capture, the block sweep, graph against eager in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("graph_probe: no CUDA device", file=sys.stderr)
@@ -270,23 +462,35 @@ def main():
     print(smi, flush=True)
     device = torch.device("cuda:0")
     errors = []
-    for H, W in ((120, 160), (480, 640)):
-        x = inputs(device, H, W)
-        launches = check_stages(x, errors=errors)
-        for fn in (check_fresh_outputs, check_other_guess, check_inline):
-            try:
-                fn(x)
-            except (CheckFailure, RuntimeError) as exc:
-                errors.append(f"{fn.__name__}: {type(exc).__name__}: {exc}")
-        print(json.dumps({"checks": f"{H}x{W}", "launches": launches, "errors": errors}), flush=True)
-    print(json.dumps({"capture_failure": check_capture_failure(x)}), flush=True)
-    if not args.no_timing:
-        for row in timing(device):
-            print(json.dumps({**row, "gpu": smi}), flush=True)
-    for c in graphs.captures():
-        print(json.dumps({"capture": c.stage, "shapes": c.shapes, "capture_ms": c.capture_ms,
-                          "pool_bytes": c.pool_bytes, "input_bytes": c.input_bytes, "launches": c.launches}),
+    if not args.solvers:
+        for H, W in ((120, 160), (480, 640)):
+            x = inputs(device, H, W)
+            launches = check_stages(x, errors=errors)
+            for fn in (check_fresh_outputs, check_other_guess, check_inline):
+                try:
+                    fn(x)
+                except (CheckFailure, RuntimeError) as exc:
+                    errors.append(f"{fn.__name__}: {type(exc).__name__}: {exc}")
+            print(json.dumps({"checks": f"{H}x{W}", "launches": launches, "errors": errors}), flush=True)
+        print(json.dumps({"capture_failure": check_capture_failure(x)}), flush=True)
+        if not args.no_timing:
+            for row in timing(device):
+                print(json.dumps({**row, "gpu": smi}), flush=True)
+    for small in (True, False):
+        got = check_solvers(device, small, errors)
+        print(json.dumps({"solver checks": "small" if small else "victoriaPark's counts", "launches and host reads "
+                          "(graph launches, eager launches, graph reads, eager reads)": got, "errors": errors}),
               flush=True)
+    print(json.dumps({"solver capture_failure": check_solver_capture_failure(device)}), flush=True)
+    if not args.no_timing:
+        for row in block_sweep(device):
+            print(json.dumps({**row, "gpu": smi}), flush=True)
+        for name, fn in solver_cases(solver_worlds(device, small=False), small=False).items():
+            print(json.dumps({**solve_turns(name, fn), "gpu": smi}), flush=True)
+    for c in graphs.captures():
+        print(json.dumps({"capture": c.stage, "shapes": c.shapes[:4], "capture_ms": c.capture_ms,
+                          "pool_bytes": c.pool_bytes, "input_bytes": c.input_bytes, "launches": c.launches,
+                          "kept": c.kept}), flush=True)
     print(smi, flush=True)
     return 1 if errors else 0
 
