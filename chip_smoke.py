@@ -110,8 +110,11 @@ Phases, one line each or more, any failure exits non-zero:
      "tracker2d", recipe="world2000")` tracker over the log (frames/s)
      and EVAL.md section 2's closing schedule, gated on ATE < 0.7x the
      odometry's and on the landmark count (0.6-1.8x those seen), with the
-     ATE against the known-association float64 optimum, and the tracker
-     and schedule a second time, bit for bit the same; (b) 300 frames on
+     ATE against the known-association float64 optimum; the solve chains
+     and stage keys captured over these runs (the graphs are padded to the
+     JAX package's capacity buckets) and the pool bytes; the tracker and
+     schedule again with every stage and solve in eager mode, bit for bit
+     the same, frames/s graphed against eager; (b) 300 frames on
      the card and on the CPU in lockstep, the associations equal up to the
      first window solve, then the card's device operations, host syncs
      and busy share of a frame and of a window solve under
@@ -125,13 +128,19 @@ Phases, one line each or more, any failure exits non-zero:
      CPU in the worker (the same submap count); the JAX package's 120-scan ground-truth
      fixture, gated on ATE < 0.75x the odometry's and < 0.35 m; 20 scans
      under torch.profiler; (b) `models.build("line_slam")` over the same
-     scans twice on the card (lines, observations and poses bit-equal, the
-     segment-sum kernel's launches counted) and on the CPU in the worker,
-     the card's line count and ATE in bands around the CPU's run and the
-     JAX package's recorded one; (c) the plane graph at 1,000 poses and 60
-     planes and (d) BA at 200 poses and 20,000 points, each run twice on
-     the card bit for bit, each trace's first LM iterations within rtol
-     1e-3 of the CPU's, and a 30-pose BA within 1.01x the float64 control;
+     scans twice on the card graphed and once in eager mode (lines,
+     observations and poses bit-equal, scans/s graphed against eager, the
+     segment-sum kernel's launches counted through replays) and on the CPU
+     in the worker, the card's line count and ATE in bands around the CPU's
+     run and the JAX package's recorded one; every scan's graphed
+     `extract_lines` bit-equal to its eager body, one scan timed graph
+     against eager; the last line-graph solve, (c) the plane graph at 1,000
+     poses and 60 planes and (d) BA at 200 poses and 20,000 points, each
+     padded to the JAX package's capacities and run as phase 12 runs its
+     solves (graphed twice and eager once, bit for bit, whole solves in
+     turns by CUDA events, host reads a solve, captures), each trace's
+     first LM iterations within rtol 1e-3 of the CPU's, and a 30-pose BA
+     within 1.01x the float64 control;
      (e) the segment-sum kernel against its plain version on every
      distinct sum of every path that launches it: one LM iteration of
      phase 12's Schur solve and of (d)'s BA, one line-SLAM extraction and
@@ -1391,13 +1400,14 @@ def same_bits(*pairs):
     return True
 
 
-def graphed_solve(label, fn, one_iteration, lm_of, cg_of=None, launches=None, key=None):
-    """Phase 12's runs of one solver (utils/graphs.solve_loop): graphed twice
-    (the key's first call, its CG blocks graphed; its second, the chain
-    captured and replayed) and eager once ("eager" mode: the eager port, a
-    host read a CG iteration), all bit-equal (trace, poses, landmarks,
-    lambda, LM and CG counts); the whole solve graph against eager in turns
-    (eager, graph, graph, eager) by CUDA events; host reads a solve; one LM
+def graphed_solve(label, fn, one_iteration, lm_of, cg_of=None, launches=None, key=None, eager_turns=2):
+    """Phases 12 and 14's runs of one solver (utils/graphs.solve_loop):
+    graphed twice (the key's first call, its CG blocks graphed; its second,
+    the chain captured and replayed) and eager once ("eager" mode: the
+    eager port, a host read a CG iteration), all bit-equal (trace, poses,
+    landmarks, lambda, LM and CG counts); the whole solve graph against
+    eager in turns (eager, graph, graph, eager; with `eager_turns` 1 the
+    last eager run is left out) by CUDA events; host reads a solve; one LM
     iteration, graphed, under torch.profiler; the captures. Returns (the
     first result, its lines); with `launches`, the first call's segment-sum
     launches go to launches[key]."""
@@ -1410,11 +1420,13 @@ def graphed_solve(label, fn, one_iteration, lm_of, cg_of=None, launches=None, ke
 
     since = len(graphs.captures())
     runs, reads = [], []
-    for f in ((lambda: counted(fn, launches, key)) if launches is not None else fn, fn, eager, fn, fn, eager):
+    for f in ((lambda: counted(fn, launches, key)) if launches is not None else fn, fn, eager, fn, fn,
+              eager)[: 4 + eager_turns]:
         graphs.host_reads = 0
         runs.append(timed(f))
         reads.append(graphs.host_reads)
-    (out, first_ms), (out2, capture_ms), (out_e, e1), (_, g1), (_, g2), (_, e2) = runs
+    (out, first_ms), (out2, capture_ms), (out_e, e1), (_, g1), (_, g2) = runs[:5]
+    e2 = runs[5][1] if eager_turns > 1 else e1
     same = same_bits(*zip(solver_leaves(out), solver_leaves(out2))) and same_bits(
         *zip(solver_leaves(out), solver_leaves(out_e)))
     check(same, f"{label}: a graphed solve differs from its eager mode")
@@ -1633,7 +1645,8 @@ def phase_backend(ctx, out_dir):
     (gs, ss), lines, times = graphed_solve(f"(b) optimize_se2_schur {SCHUR_CAPS}, Woodbury {woodbury}",
                                            lambda: sp.optimize_se2_schur(g, **SCHUR_CAPS),
                                            lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS, "iters": 1}),
-                                           lambda st: st.lm_iters, lambda st: st.cg_iters, launches, "schur")
+                                           lambda st: st.lm_iters, lambda st: st.cg_iters, launches, "schur",
+                                           eager_turns=1)  # one eager Schur solve (~17-19 s) holds its time
     ctx.setdefault("solve_ms", {})["schur"] = times
     ratio = float(ss.chi2[-1]) / ctl["chi2"]
     for line in lines:
@@ -1861,7 +1874,8 @@ def phase_slam2d(ctx, out_dir):
     cuda` (the world2000 recipe's flags), then the same log through a
     `models.build("tracker2d", recipe="world2000")` tracker and EVAL
     section 2's schedule, ATE against the ground truth, the odometry and
-    the float64 optimum of the known-association graph; (b) its first 300
+    the float64 optimum of the known-association graph; the chains and
+    stage keys captured; the same run in eager mode, bit-equal; (b) its first 300
     frames on the card and on the CPU in lockstep, the same draws; (c) the
     validated tracking loop, the constellation closure, graph merge and the model
     families at test size."""
@@ -1881,7 +1895,10 @@ def phase_slam2d(ctx, out_dir):
     from g2o_frontend_tpu_torch.solvers.control import control_optimize_se2
     from g2o_frontend_tpu_torch.utils.evaluation import ate_xy
 
+    from g2o_frontend_tpu_torch.utils import graphs
+
     device, t13 = ctx["device"], time.perf_counter()
+    chains0, caps0 = len(graphs._CHAINS), len(graphs.captures())
 
     # (a) the world-2000-size run
     world = simulate(SimulatorConfig(**WORLD2000))
@@ -1925,17 +1942,38 @@ def phase_slam2d(ctx, out_dir):
     check(ate_gt["rmse"] < 0.7 * ate_odo["rmse"], f"ATE {ate_gt['rmse']:.4f} m is not below 0.7x the odometry's "
           f"{ate_odo['rmse']:.4f} m")
     check(0.6 * seen <= n_lm <= 1.8 * seen, f"{n_lm} landmarks against {seen} seen")
+    caps = graphs.captures()[caps0:]
+    stages = {}
+    for c in caps:
+        if ": " not in c.stage:  # a stage's key; a solve's pieces are named "<solve>: <piece>"
+            stages[c.stage] = stages.get(c.stage, 0) + 1
+    kept = [c for c in caps if c.kept and ": " in c.stage]
+    say("slam2d", f"(a) captured over the app's and the family's {len(frames)}-pose runs: "
+        f"{len(graphs._CHAINS) - chains0} solve chains kept ({len(kept)} graphs, "
+        f"{sum(c.capture_ms for c in kept):.1f} ms, pool +{sum(c.pool_bytes for c in kept)} B), "
+        f"{sum(stages.values())} stage keys {json.dumps(stages)} (pool "
+        f"+{sum(c.pool_bytes for c in caps if ': ' not in c.stage)} B), {len([c for c in caps if not c.kept])} "
+        f"CG-block graphs dropped at their solve's end; the device's graph pool {graphs._pool_bytes(device)} B")
+    # the same frames with every stage and solve eager: the eager port, the graphs' yardstick
     tr2 = models.build("tracker2d", recipe="world2000", device=device)
-    for k, (delta, obs, info) in enumerate(frames):
-        tr2.process_frame(delta, obs, info)
-        if (k + 1) % 100 == 0:
-            tr2.close_loops()
-    chi2_2 = eval_schedule(tr2)
+    with graphs.mode("eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, (delta, obs, info) in enumerate(frames):
+            tr2.process_frame(delta, obs, info)
+            if (k + 1) % 100 == 0:
+                tr2.close_loops()
+        track_e = time.perf_counter() - t0
+        chi2_2, sched_e = host_s(lambda: eval_schedule(tr2))
     same = chi2 == chi2_2 and same_bits((est, tr2.trajectory()), (tr.landmarks, tr2.landmarks),
                                         (tr.lm_alive, tr2.lm_alive))
-    say("slam2d", f"(a) the tracking loop and the schedule a second time on the card (their map solves go through "
-        f"pose_graph): chi2 {chi2_2:.4f}; trajectory, landmarks and chi2 bit-equal {same}")
-    check(same, "two card runs of the tracker2d family differ")
+    say("slam2d", f"(a) the same frames and schedule with every stage and solve in eager mode: tracking loop "
+        f"{track_e:.2f} s, {len(frames) / track_e:.2f} frames/s against {len(frames) / track_s:.2f} graphed "
+        f"({track_e / track_s:.2f}x); schedule {sched_e:.2f} s against {sched_s:.2f} s graphed "
+        f"({sched_e / sched_s:.2f}x); "
+        f"chi2 {chi2_2:.4f}, {int(tr2.lm_alive.sum())} landmarks; trajectory, landmarks and chi2 bit-equal {same}")
+    check(same, "the tracker2d family's graphed run differs from its eager rerun")
+    ctx["tracker2d_fps"] = dict(graph=len(frames) / track_s, eager=len(frames) / track_e)
 
     # (b) the card against the CPU over the first frames, the same draws;
     # then the card's next frames under torch.profiler
@@ -2312,17 +2350,20 @@ def phase_slice5(ctx, out_dir):
     the plane graph, 1,000 poses and 60 planes (8,000 plane edges), its
     first LM iterations on the CPU; (d) BA, 200 poses and 20,000 points
     (160,000 observations), its first LM iterations on the CPU, and a
-    30-pose problem against the float64 control."""
+    30-pose problem against the float64 control. The line, plane and BA
+    solves and the extraction run graphed against their eager mode."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch import models
+    from g2o_frontend_tpu_torch.laser import line_extraction as tle
     from g2o_frontend_tpu_torch.slam import grid_slam as gs
     from g2o_frontend_tpu_torch.slam import line_slam as ls
     from g2o_frontend_tpu_torch.slam.simulator import LaserWorldConfig, simulate_laser_world
     from g2o_frontend_tpu_torch.solvers import ba as tba
     from g2o_frontend_tpu_torch.solvers import plane_slam as tps
     from g2o_frontend_tpu_torch.solvers.control import control_optimize_ba
+    from g2o_frontend_tpu_torch.utils import graphs
     from g2o_frontend_tpu_torch.utils.evaluation import ate_xy
 
     device, t14 = ctx["device"], time.perf_counter()
@@ -2394,12 +2435,31 @@ def phase_slice5(ctx, out_dir):
 
     ext, solves, run_s, merged, chi2_l, final_s = counted(line_run, launches, "line_slam")
     extracted = [out for _, _, out in ext.calls]
-    # (e) holds the segment sums of the middle extraction and of the last solve
+    # (e) holds the segment sums of the middle extraction and of the last solve, run eagerly (a replay calls
+    # no wrapper)
     recorded = ctx.setdefault("sums_recorded", [])
-    args, kw, _ = ext.calls[len(ext.calls) // 2]
-    recorded += [("line extraction", "line_slam", c) for c in record_sums(lambda: ls.extract_lines(*args, **kw))]
-    args, kw, _ = solves.calls[-1]
-    recorded += [("line solve", "line_slam", c) for c in record_sums(lambda: ls.optimize_line_graph(*args, **kw))]
+    e_args, e_kw, _ = ext.calls[len(ext.calls) // 2]
+    s_args, s_kw, _ = solves.calls[-1]
+    with graphs.mode("eager"):
+        recorded += [("line extraction", "line_slam", c)
+                     for c in record_sums(lambda: ls.extract_lines(*e_args, **e_kw))]
+        recorded += [("line solve", "line_slam", c)
+                     for c in record_sums(lambda: ls.optimize_line_graph(*s_args, **s_kw))]
+        eager_ext = [ls.extract_lines(*a, **k) for a, k, _ in ext.calls]
+    same_ext = all(same_bits(*zip(a, b)) for a, b in zip(extracted, eager_ext))
+    ext_row = graph_turns(ctx, f"extract_lines, {len(e_args[0])} beams", lambda: ls.extract_lines(*e_args, **e_kw),
+                          lambda: tle._extract_lines(*e_args), 30)
+    say("slice5", f"(b) extract_lines: the {len(extracted)} scans' graphed line sets bit-equal to their eager "
+        f"extraction {same_ext}; one scan graph {ext_row['graph_ms']:.4f} ms, eager {ext_row['eager_ms']:.4f} ms")
+    check(same_ext, "a graphed extract_lines differs from its eager body")
+    _, solve_lines, solve_ms = graphed_solve(
+        f"(b) optimize_line_graph, the last solve's graph ({s_args[0].poses.shape[0]} pose rows, "
+        f"{s_args[0].lines.shape[0]} line rows, {s_args[0].pl_ij.shape[0]} observation rows; {s_kw})",
+        lambda: ls.optimize_line_graph(*s_args, **s_kw),
+        lambda: ls.optimize_line_graph(*s_args, **{**s_kw, "iters": 1}), lambda t: len(t) - 1)
+    for line in solve_lines:
+        say("slice5", line)
+    ctx.setdefault("solve_ms", {})["line SLAM's last solve"] = solve_ms
     ate_l = ate_xy(np.asarray(drv.poses, np.float64)[:, :2], gt[:, :2])["rmse"]
     say("slice5", f"(b) line SLAM on cuda: {run_s:.2f} s for {n} scans ({n / run_s:.2f} scans/s; a solve every "
         f"{drv.cfg.optimize_each_n}); extract_lines median {np.median(ext.ms()):.3f} ms, {len(solves.events)} solves, "
@@ -2419,16 +2479,29 @@ def phase_slice5(ctx, out_dir):
         f"same lines (mask and point counts), endpoints, normals and rho within {geo:.2e} there; segment-sum kernel "
         f"launches {launches['line_slam']}")
     check(np.isfinite(chi2_l) and drv.stats()["n_lines"] > 0, "line SLAM failed")
+    def same_run(d, m, c):
+        return (drv.stats() == d.stats() and merged == m and chi2_l == c
+                and [(p, l) for p, l, _, _ in drv.pl_edges] == [(p, l) for p, l, _, _ in d.pl_edges]
+                and same_bits(*[(a[2], b[2]) for a, b in zip(drv.pl_edges, d.pl_edges)],
+                              (np.asarray(drv.poses), np.asarray(d.poses)), (drv.lines, d.lines)))
+
     drv2 = models.build("line_slam", device=device)
     run2_s = drive_scans(drv2, world)
     merged2, chi2_l2 = drv2.merge_landmarks(), drv2.optimize()
-    same = (drv.stats() == drv2.stats() and merged == merged2 and chi2_l == chi2_l2
-            and [(p, l) for p, l, _, _ in drv.pl_edges] == [(p, l) for p, l, _, _ in drv2.pl_edges]
-            and same_bits(*[(a[2], b[2]) for a, b in zip(drv.pl_edges, drv2.pl_edges)],
-                          (np.asarray(drv.poses), np.asarray(drv2.poses)), (drv.lines, drv2.lines)))
-    say("slice5", f"(b) line SLAM a second time on the card ({run2_s:.2f} s): {drv2.stats()}, merged {merged2}, chi2 "
-        f"{chi2_l2:.4f}; lines, observations (pose, line, measurement), poses and chi2 bit-equal {same}")
+    same = same_run(drv2, merged2, chi2_l2)
+    say("slice5", f"(b) line SLAM a second time on the card ({run2_s:.2f} s, {n / run2_s:.2f} scans/s): "
+        f"{drv2.stats()}, merged {merged2}, chi2 {chi2_l2:.4f}; lines, observations (pose, line, measurement), "
+        f"poses and chi2 bit-equal {same}")
     check(same, "two card runs of line SLAM differ")
+    drv3 = models.build("line_slam", device=device)
+    with graphs.mode("eager"):
+        run3_s = drive_scans(drv3, world)
+        merged3, chi2_l3 = drv3.merge_landmarks(), drv3.optimize()
+    same = same_run(drv3, merged3, chi2_l3)
+    say("slice5", f"(b) line SLAM with every stage and solve in eager mode: {run3_s:.2f} s, {n / run3_s:.2f} scans/s "
+        f"against {n / run2_s:.2f} graphed ({run3_s / run2_s:.2f}x); bit-equal to the graphed runs {same}")
+    check(same, "line SLAM's graphed run differs from its eager rerun")
+    ctx["line_scans_s"] = dict(graph=n / run2_s, eager=n / run3_s)
     lines_band(drv.stats(), ate_l, lc["stats"], ate_xy(lc["poses"][:, :2], gt[:, :2])["rmse"])
 
     # (c) the plane graph
@@ -2437,14 +2510,14 @@ def phase_slice5(ctx, out_dir):
                                                     per_pose=PLANE_BIG["per_pose"], step=PLANE_BIG["step"],
                                                     seed=PLANE_BIG["seed"])
     g = tps.make_plane_graph(poses7, planes_init, pp, pl, device=device)
-    (gp_, tr), line = solve_line(f"(c) optimize_plane_graph, {len(poses7)} poses, {len(planes)} planes, {len(pl)} "
-                                 f"plane edges, {len(pp)} odometry edges, iters=15, cg_iters=60",
-                                 lambda: tps.optimize_plane_graph(g, iters=15, cg_iters=60),
-                                 lambda: tps.optimize_plane_graph(g, iters=1, cg_iters=60), lambda t: len(t) - 1)
-    gp2, tr2 = tps.optimize_plane_graph(g, iters=15, cg_iters=60)
-    same = same_bits((tr, tr2), (gp_.poses, gp2.poses), (gp_.planes, gp2.planes))
-    say("slice5", line + f"; a second card run: trace, poses and planes bit-equal {same}")
-    check(same, "two card runs of optimize_plane_graph differ")
+    (gp_, tr), lines, solve_ms = graphed_solve(
+        f"(c) optimize_plane_graph, {len(poses7)} poses, {len(planes)} planes, {len(pl)} plane edges, {len(pp)} "
+        f"odometry edges (padded to {g.poses.shape[0]}, {g.planes.shape[0]}, {g.pl_ij.shape[0]}, "
+        f"{g.pp_ij.shape[0]} rows), iters=15, cg_iters=60", lambda: tps.optimize_plane_graph(g, iters=15, cg_iters=60),
+        lambda: tps.optimize_plane_graph(g, iters=1, cg_iters=60), lambda t: len(t) - 1)
+    for line in lines:
+        say("slice5", line)
+    ctx.setdefault("solve_ms", {})["plane graph"] = solve_ms
     _, tr_cpu = tps.optimize_plane_graph(tps.make_plane_graph(poses7, planes_init, pp, pl, device=cpu), iters=3,
                                          cg_iters=60)
     ok, rel = trace_close(tr[:4], tr_cpu, 1e-3)
@@ -2455,15 +2528,15 @@ def phase_slice5(ctx, out_dir):
     _, _, poses7, points_init, obs = ba_world(**BA_BIG)
     ba = tba.make_ba_problem(poses7, points_init, obs, device=device)
     ctx["ba_big"] = (poses7, points_init, obs)  # for phase 15
-    (ba1, tr), line = solve_line(f"(d) optimize_ba, {len(poses7)} poses, {len(points_init)} points, {len(obs[0])} "
-                                 "observations, iters=10, cg_iters=50",
-                                 lambda: counted(lambda: tba.optimize_ba(ba, iters=10, cg_iters=50), launches, "ba"),
-                                 lambda: tba.optimize_ba(ba, iters=1, cg_iters=50), lambda t: len(t) - 1)
-    ba2, tr2 = tba.optimize_ba(ba, iters=10, cg_iters=50)
-    same = same_bits((tr, tr2), (ba1.poses, ba2.poses), (ba1.points, ba2.points))
-    say("slice5", line + f"; segment-sum kernel launches {launches['ba']}; a second card run: trace, poses and points "
-        f"bit-equal {same}")
-    check(same, "two card runs of optimize_ba differ")
+    (ba1, tr), lines, solve_ms = graphed_solve(
+        f"(d) optimize_ba, {len(poses7)} poses, {len(points_init)} points, {len(obs[0])} observations (padded to "
+        f"{ba.poses.shape[0]}, {ba.points.shape[0]}, {ba.obs_ij.shape[0]} rows), iters=10, cg_iters=50",
+        lambda: tba.optimize_ba(ba, iters=10, cg_iters=50), lambda: tba.optimize_ba(ba, iters=1, cg_iters=50),
+        lambda t: len(t) - 1, launches=launches, key="ba")
+    for line in lines:
+        say("slice5", line)
+    say("slice5", f"(d) segment-sum kernel launches of the first solve {launches['ba']} (replays counted)")
+    ctx.setdefault("solve_ms", {})["BA"] = solve_ms
     _, tr_cpu = tba.optimize_ba(tba.make_ba_problem(poses7, points_init, obs, device=cpu), iters=2, cg_iters=50)
     ok, rel = trace_close(tr[:3], tr_cpu, 1e-3)
     say("slice5", f"(d) trace {[round(float(x), 4) for x in tr]}; the first 2 LM iterations on the CPU within {rel:.2e}")
@@ -2557,8 +2630,10 @@ def phase_segment_sum(ctx, ba):
     shape): `segment_sum` (the kernel) and the previous design each equal
     bit for bit to the CPU's index_add_ on CPU copies of the inputs, two
     launches bit-equal; the two timed by CUDA graph replays in turns with
-    the atomic index_add_ into n + 1 rows (the one PyTorch call that
-    computes the same sum), beside the plain version and the bound. Then an
+    the atomic index_add_ of the live rows into n rows (the one PyTorch
+    call that computes the same sum), beside the plain version and the
+    bound, which counts only the live rows (those of the dump slot are
+    never read). Then an
     index built and summed inside a graph capture (`index_in_graph`) on a
     line-SLAM and a Schur sum. Returns the kernel row's numbers: those of
     the call with the most bytes, and every call's."""
@@ -2575,7 +2650,7 @@ def phase_segment_sum(ctx, ba):
     with graphs.mode("eager"):  # a replayed graph calls no wrapper: record the sums where they run
         recorded = [("Schur", "schur", c) for c in record_sums(lambda: sp.optimize_se2_schur(g, **{**SCHUR_CAPS,
                                                                                                     "iters": 1}))]
-    recorded += [("BA", "ba", c) for c in record_sums(lambda: tba.optimize_ba(ba, iters=1, cg_iters=50))]
+        recorded += [("BA", "ba", c) for c in record_sums(lambda: tba.optimize_ba(ba, iters=1, cg_iters=50))]
     recorded += ctx.pop("sums_recorded", [])
     values, seg = recorded[0][2]
     recorded.append(("Schur (as float64)", "schur", (values.double(), seg)))
@@ -2590,25 +2665,32 @@ def phase_segment_sum(ctx, ba):
         equal = dict(twice=same_bits((k1, k2)), cpu=same_bits((k1, plain)), previous=same_bits((prev, plain)))
         err = max(err, float((k1.cpu() - plain).abs().max()) if k1.numel() else 0.0)
         v = values.contiguous()
-        # the atomic sum into n + 1 rows: the chain's sums have a dump slot
+        # the rows sent to the dump slot (masked edges, BA's padded
+        # observations) are never read by the kernel: the bound and the
+        # atomic index_add_ count only the live rows
+        live = seg.index < n
+        E_live = int(seg.offsets[n])
+        v_live, index_live = v[live].contiguous(), seg.index[live].contiguous()
         k_ms, prev_ms, lib_ms = turns([lambda: ss.segment_sum(v, seg), lambda: ss._segment_sum_previous(v, seg),
-                                       lambda: v.new_zeros((n + 1,) + v.shape[1:]).index_add_(0, seg.index, v)], v)
+                                       lambda: v.new_zeros((n,) + v.shape[1:]).index_add_(0, index_live, v_live)], v)
         plain_ms = graph_ms(lambda: ss.segment_sum_reference(v, seg), v, 20)
-        nbytes = (E * C + n * C) * v.element_size() + E * 4 + (n + 1) * 4
+        nbytes = (E_live * C + n * C) * v.element_size() + E_live * 4 + (n + 1) * 4
         bound_ms = nbytes / 3.35e12 * 1e3
         lengths = seg.offsets[1:] - seg.offsets[:-1]
         lay = ss.layout(E, n, C, v.element_size())
         threshold, n_long = long_segments(seg, lay)
         longest = int(lengths.max()) if n else 0
-        say("slice5", f"(e) segment_sum on {path}'s {E} rows x {C} {str(v.dtype)[6:]} into {n} segments (longest "
-            f"{longest}; {lay.long_blocks} long + {lay.short_blocks} short blocks, {n_long} segments long from "
-            f"{threshold} rows, {lay.outputs_per_thread} output(s) a thread, {lay.rows_per_chunk} rows a chunk, "
-            f"{lay.copy_bytes}-byte copies): kernel {k_ms:.6f} ms, previous design {prev_ms:.6f} ms "
-            f"({k_ms / prev_ms:.3f}x), atomic index_add_ {lib_ms:.6f} ms ({k_ms / lib_ms:.3f}x), plain "
-            f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} B, {100.0 * bound_ms / k_ms:.1f}% of it); "
+        say("slice5", f"(e) segment_sum on {path}'s {E} rows ({E_live} live) x {C} {str(v.dtype)[6:]} into {n} "
+            f"segments (longest {longest}; {lay.long_blocks} long + {lay.short_blocks} short blocks, {n_long} "
+            f"segments long from {threshold} rows, {lay.outputs_per_thread} output(s) a thread, "
+            f"{lay.rows_per_chunk} rows a chunk, {lay.copy_bytes}-byte copies): kernel {k_ms:.6f} ms, previous "
+            f"design {prev_ms:.6f} ms ({k_ms / prev_ms:.3f}x), atomic index_add_ of the live rows {lib_ms:.6f} ms "
+            f"({k_ms / lib_ms:.3f}x), plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} B, "
+            f"{100.0 * bound_ms / k_ms:.1f}% of it); "
             f"the path's launches {launches[key]}; equal to the CPU's index_add_ bit for bit {equal}")
         check(all(equal.values()), f"the segment-sum kernel differs from its plain version on {path}'s {E} x {C} sum")
-        rows.append(dict(path=path, launches=launches[key], rows=E, columns=C, segments=n, longest=longest,
+        rows.append(dict(path=path, launches=launches[key], rows=E, live_rows=E_live, columns=C, segments=n,
+                         longest=longest,
                          long_segments=n_long, ms=k_ms, previous_ms=prev_ms, library_ms=lib_ms,
                          plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes))
     for path in ("line extraction", "Schur (as float64)"):  # the first sum of each
@@ -3143,7 +3225,9 @@ def run(out_dir):
         f"{100 * r['graph_idle_share']:.1f}% of a replay)" for r in ctx["stage_ms"]))
     say("graphs", f"bench {json.dumps(ctx['bench'])}; tracker frames/s {json.dumps(ctx['tracker_fps'])}; stress run "
         f"frames/s (no cache, cache) {ctx['stress_fps']}; {ctx['captures']} keys captured")
-    say("graphs", "solves at victoriaPark's counts, graph against eager (ms): " + "; ".join(
+    say("graphs", f"tracker2d frames/s (graph, eager) {json.dumps(ctx['tracker2d_fps'])}; line SLAM scans/s "
+        f"{json.dumps(ctx['line_scans_s'])}")
+    say("graphs", "solves at victoriaPark's counts and the landmark solves, graph against eager (ms): " + "; ".join(
         f"{k} {v['graph_ms']:.3f} vs {v['eager_ms']:.3f} ({v['eager_ms'] / v['graph_ms']:.2f}x)"
         for k, v in ctx["solve_ms"].items()) + "; the callers' solves, graphed against their eager reruns (ms): "
         + "; ".join(f"phase {n} {c['graphed_ms']:.1f} vs {c['eager_ms']:.1f} over {c['rerun']} of {c['calls']} calls"

@@ -6,9 +6,9 @@ graphs, maps, merged models and plane sets. Clouds, `PoseGraph2D`s,
 arrays keyed by their field names (the two packages share names and
 layouts); configs cross as any object with the port config's fields, JAX's
 included, read by attribute so that JAX is never imported. The slice-5 graphs
-(`LineGraph`, `PlaneGraph`, `BAProblem`) cross from the JAX package's padded
-arrays to the port's exact-count tensors (`line_graph_from_numpy`, ...),
-and a likelihood map with its `GridSpec` through
+(`LineGraph`, `PlaneGraph`, `BAProblem`) cross as the JAX package's padded
+arrays, padding and all (`line_graph_from_numpy`, ...): the port's
+builders pad alike, and a likelihood map with its `GridSpec` through
 `likelihood_map_from_numpy`. A `MapManager`
 crosses through the checkpoint archive that both packages read and write
 (`io.checkpoint.save_map` / `load_map`), any NamedTuple or dataclass of
@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .graph.store import PoseGraph2D, PoseGraph3D, _tensors
+from .graph.store import PoseGraph2D, PoseGraph3D
 from .laser.scan_matcher import GridSpec
 from .pwn.aligner import AlignerConfig
 from .pwn.cloud import Cloud
@@ -78,7 +78,8 @@ def _pose_graph_from_numpy(cls, arrays, device):
         dtype = bool if name.endswith("mask") or name == "fixed" else np.int64 if name.endswith("_ij") else np.float32
         return torch.as_tensor(np.array(a, dtype), device=device)
 
-    return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
+    names = cls._fields if hasattr(cls, "_fields") else [f.name for f in dataclasses.fields(cls)]
+    return cls(**{name: field(name) for name in names})
 
 
 def pose_graph3d_from_numpy(arrays, device="cuda") -> PoseGraph3D:
@@ -104,42 +105,14 @@ def pose_graph2d_to_numpy(g: PoseGraph2D) -> dict:
     return {f.name: getattr(g, f.name).detach().cpu().numpy() for f in dataclasses.fields(PoseGraph2D)}
 
 
-def _prefix(mask) -> int:
-    """The count of a padded array's valid rows, which must come first."""
-    mask = np.asarray(mask, bool)
-    n = int(mask.sum())
-    if not mask[:n].all():
-        raise ValueError("the valid rows of a padded array must come first")
-    return n
-
-
-def _unpad(cls, arrays, rows: dict, device):
-    """A padded {field: array} -> `cls` at exact counts: `rows` maps each
-    mask field to the fields it counts (itself included); `fixed` follows
-    `pose_mask`. Masks and `fixed` bool, `*_ij` int64, the rest float32."""
-    out = {}
-    for mask, fields in rows.items():
-        n = _prefix(arrays[mask])
-        for name in fields:
-            a = np.array(arrays[name])[:n]
-            out[name] = a.astype(bool) if name.endswith("mask") or name == "fixed" else (
-                a.astype(np.int64) if name.endswith("_ij") else a)
-    return _tensors(cls, out, torch.float32, device)
-
-
-def _graph_rows(lm, lm_mask):
-    return {"pose_mask": ("poses", "pose_mask", "fixed"), lm_mask: (lm, lm_mask),
-            "pp_mask": ("pp_ij", "pp_meas", "pp_info", "pp_mask"), "pl_mask": ("pl_ij", "pl_meas", "pl_info", "pl_mask")}
-
-
 def _to_numpy(tup) -> dict:
     return {name: t.detach().cpu().numpy() for name, t in tup._asdict().items()}
 
 
 def line_graph_from_numpy(arrays, device="cuda") -> LineGraph:
     """{field: array} of a JAX LineGraph (padded to powers of two) -> the
-    port's LineGraph on `device` at its exact counts."""
-    return _unpad(LineGraph, arrays, _graph_rows("lines", "line_mask"), device)
+    port's LineGraph on `device`, padded alike."""
+    return _pose_graph_from_numpy(LineGraph, arrays, device)
 
 
 def line_graph_to_numpy(g: LineGraph) -> dict:
@@ -149,8 +122,8 @@ def line_graph_to_numpy(g: LineGraph) -> dict:
 
 def plane_graph_from_numpy(arrays, device="cuda") -> PlaneGraph:
     """{field: array} of a JAX PlaneGraph (padded) -> the port's PlaneGraph
-    on `device` at its exact counts."""
-    return _unpad(PlaneGraph, arrays, _graph_rows("planes", "plane_mask"), device)
+    on `device`, padded alike."""
+    return _pose_graph_from_numpy(PlaneGraph, arrays, device)
 
 
 def plane_graph_to_numpy(g: PlaneGraph) -> dict:
@@ -160,10 +133,8 @@ def plane_graph_to_numpy(g: PlaneGraph) -> dict:
 
 def ba_problem_from_numpy(arrays, device="cuda") -> BAProblem:
     """{field: array} of a JAX BAProblem (padded) -> the port's BAProblem on
-    `device` at its exact counts."""
-    rows = {"pose_mask": ("poses", "pose_mask", "fixed"), "point_mask": ("points", "point_mask"),
-            "obs_mask": ("obs_ij", "obs_z", "obs_info", "obs_mask")}
-    return _unpad(BAProblem, arrays, rows, device)
+    `device`, padded alike."""
+    return _pose_graph_from_numpy(BAProblem, arrays, device)
 
 
 def ba_problem_to_numpy(ba: BAProblem) -> dict:

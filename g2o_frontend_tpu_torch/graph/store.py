@@ -5,12 +5,16 @@ edges; `PoseGraph3D` holds SE3 poses (x y z qx qy qz qw) and SE3-SE3 edges.
 Each is a struct of tensors with validity masks.
 
 The JAX store pads every graph to a power-of-two capacity (`_cap`) so that
-XLA sees fixed shapes while a graph grows. PyTorch runs eagerly and needs
-no fixed shapes: `graph2d_from_log` and `graph3d_from_log` pack a graph at
-its exact counts unless a capacity is asked for. The masks stay, so a
-padded JAX graph carried across field by field
-(`convert.pose_graph2d_from_numpy`) solves as it is, and a graph with no
-landmarks has zero landmark rows where JAX pads to 8.
+XLA sees fixed shapes while a graph grows. The port pads where the JAX
+package's builders pad (the tracker's graphs, `make_line_graph`,
+`make_plane_graph`, `make_ba_problem`), so that its captured solves
+(`utils.graphs`) see the same few shapes; `_pad` and `_padded_edges`
+fill the padded rows as the JAX package does. `graph2d_from_log` and
+`graph3d_from_log` pack a graph read from a file at its exact counts
+unless a capacity is asked for, as before. The masks stay, so a padded
+JAX graph carried across field by field (`convert.pose_graph2d_from_numpy`)
+solves as it is, and a graph with no landmarks has zero landmark rows
+where JAX pads to 8.
 """
 from __future__ import annotations
 
@@ -137,14 +141,34 @@ def _tensors(cls, arrays: dict, dtype, device):
     return cls(**{name: field(a) for name, a in arrays.items()})
 
 
-def _edge_arrays(edges, dz: int):
+def _edge_arrays(edges, dz: int, dw: int | None = None):
     """(i, j, z, info) host tuples -> (ij int64 (E, 2), z (E, dz), info
-    (E, dw, dw), mask (E,) all True), dw the information's side."""
+    (E, dw, dw), mask (E,) all True), dw the information's side (dz unless
+    given)."""
     ij = np.array([e[:2] for e in edges], np.int64).reshape(-1, 2)
     z = np.array([e[2] for e in edges], np.float64).reshape(-1, dz)
     w = np.array([e[3] for e in edges], np.float64)
-    dw = w.shape[-1] if len(edges) else dz
+    dw = dz if dw is None else dw
     return ij, z, w.reshape(-1, dw, dw), np.ones(len(edges), bool)
+
+
+def _pad(a, cap: int, fill=0):
+    """`a` with rows of `fill` appended up to `cap` rows: the JAX package's
+    padding of a graph to its capacity."""
+    a = np.asarray(a)
+    out = np.empty((cap,) + a.shape[1:], a.dtype)
+    out[:] = fill
+    out[: len(a)] = a
+    return out
+
+
+def _padded_edges(prefix: str, arrays, cap: int, meas_fill=0) -> dict:
+    """`_edge_arrays`' (ij, z, info, mask) padded to `cap` rows as the
+    fields ``{prefix}_ij``, ``_meas``, ``_info`` and ``_mask``: padded edges
+    join row 0 to row 0 with zero information and are masked off."""
+    ij, z, w, mask = arrays
+    return {f"{prefix}_ij": _pad(ij, cap), f"{prefix}_meas": _pad(z, cap, meas_fill), f"{prefix}_info": _pad(w, cap),
+            f"{prefix}_mask": _pad(mask, cap, False)}
 
 
 def _fixed_rows(n: int, fixed_idx) -> np.ndarray:

@@ -22,7 +22,10 @@ order) and `ops.segment_sum` (the moments, in a fixed order) with the JAX
 version's values for empty segments (-inf for a float max, the integer
 extremes for an integer min or max); the lines are ranked by point count
 with a stable descending sort, so equal counts keep scan order as
-``lax.top_k`` does. Everything runs on the device of `ranges`.
+``lax.top_k`` does. Everything runs on the device of `ranges`. The JAX
+package jits the whole extraction (its rounds a ``lax.scan``); here it is
+one `utils.graphs.Stage`: on the card one graph a scan length and config,
+captured once and replayed for every scan.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import segment_sum as ss
+from ..utils import graphs
 
 
 @dataclass(frozen=True)
@@ -152,6 +156,11 @@ def _segments(brk, n):
 
 def extract_lines(ranges, angles, config: LineExtractorConfig = LineExtractorConfig()) -> LineSet:
     """Extract line segments from one laser scan (fixed-length tensors)."""
+    return _EXTRACT_LINES(ranges, angles, config)
+
+
+def _extract_lines(ranges, angles, config: LineExtractorConfig) -> LineSet:
+    """`extract_lines`' eager body."""
     cfg = config
     pts, valid = scan_to_points(ranges, angles, max_range=cfg.max_range)
     n = pts.shape[0]
@@ -224,3 +233,6 @@ def extract_lines(ranges, angles, config: LineExtractorConfig = LineExtractorCon
         n_points=torch.where(sel_ok, cnt[top], 0.0),
         mask=sel_ok,
     )
+
+
+_EXTRACT_LINES = graphs.Stage("extract_lines", _extract_lines)

@@ -18,13 +18,20 @@ are masked, never compacted. The draws come from a `torch.Generator` on
 its own device (a CPU generator gives the same hypotheses whatever device
 scores them), or are passed in as `minimal_sets`: the JAX package draws
 from ``jax.random``, whose stream torch cannot reproduce, so its draws are
-fed in that way to hold the two packages to one another.
+fed in that way to hold the two packages to one another. Steps 2-5, which
+the JAX package jits, are one `utils.graphs.Stage` (`_RANSAC`) taking the
+drawn sets as a tensor: on the card a key (the shapes, the solver and the
+thresholds) is captured at its second call and replayed after, so the
+tracker's padded calls replay and a caller at exact, varying shapes
+(`slam.graph_merge`) keeps no graph for a key it calls once.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils import graphs
 
 
 class RansacResult(NamedTuple):
@@ -83,17 +90,24 @@ def ransac(
       minimal_sets: optional (n_hypotheses, minimal_size) index sets; when
         given, nothing is drawn.
     """
-    n = data1.shape[0]
-    dtype, device = data1.dtype, data1.device
     if minimal_sets is None:
         minimal_sets = _sample_minimal_sets(generator, n_hypotheses, minimal_size, mask)
-    idx = minimal_sets.to(device)
+    return _RANSAC(data1, data2, mask, minimal_sets.to(data1.device).contiguous(), fit_fn, err_fn,
+                   float(inlier_threshold), int(min_inliers))
+
+
+def _ransac(data1, data2, mask, idx, fit_fn, err_fn, inlier_threshold, min_inliers) -> RansacResult:
+    """Steps 2-5 over the drawn index sets `idx` (K, m) on the data's
+    device."""
+    n = data1.shape[0]
+    dtype, device = data1.dtype, data1.device
     fmask = mask.to(dtype)
     w = torch.zeros((idx.shape[0], n), dtype=dtype, device=device).scatter_(1, idx, 1.0) * fmask
     hyps = fit_fn(data1, data2, w)  # (K, ...)
     _, counts, errs = _score(err_fn(hyps, data1, data2), mask, inlier_threshold)
     score = counts.to(dtype) - 1e-3 * errs / (1.0 + errs)
-    T = hyps[torch.argmax(score)]
+    # the best hypothesis by an index tensor: indexing with a 0-dim tensor reads it on the host
+    T = hyps.index_select(0, torch.argmax(score).reshape(1))[0]
 
     for _ in range(2):
         inl, cnt, _ = _score(err_fn(T, data1, data2), mask, inlier_threshold)
@@ -102,3 +116,6 @@ def ransac(
         T = torch.where(cnt_new >= cnt, T_new, T)
     inliers, cnt, err = _score(err_fn(T, data1, data2), mask, inlier_threshold)
     return RansacResult(T, inliers, cnt, err, cnt >= min_inliers)
+
+
+_RANSAC = graphs.Stage("ransac", _ransac, second_call=True)

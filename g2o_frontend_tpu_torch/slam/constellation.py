@@ -27,10 +27,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..graph.store import _cap
 from ..ransac import solvers as rsolvers
+from ..utils import graphs
 
 
-def _score_hypotheses(T, A, a_mask, B, b_mask, thr2):
+def _score_hypotheses_body(T, A, a_mask, B, b_mask, thr2):
     """Inlier count and mean NN squared error for K SE2 hypotheses at once.
 
     T: (K, 3) charts mapping A into B's frame; A: (NA, 2); B: (NB, 2).
@@ -46,6 +48,10 @@ def _score_hypotheses(T, A, a_mask, B, b_mask, thr2):
     cnt = inl.sum(1)
     err = torch.where(inl, nn, 0.0).sum(1) / torch.clamp_min(cnt, 1)
     return cnt, err
+
+
+# the JAX package's jitted scoring, captured once per key (padded shapes) on the card
+_score_hypotheses = graphs.Stage("score_hypotheses", _score_hypotheses_body)
 
 
 @dataclass
@@ -168,21 +174,29 @@ def match_constellations(
         if len(T) == 0:
             return fail
 
-    # --- batched scoring (device) ------------------------------------------
-    # the JAX package pads K, NA and NB to powers of two against
-    # recompiles; the padded hypotheses are parked far away and the
-    # padded points masked, so scoring at exact counts gives the same
-    # values
+    # --- batched scoring (device, padded shapes) --------------------------
+    # K, NA and NB pad to powers of two as in the JAX package, so that the
+    # stage sees few keys: the padded hypotheses are parked far away and
+    # the padded points masked
     dev = torch.device(device)
+    K = len(T)
+    KC, NA, NB = _cap(K, 64), _cap(nA), _cap(nB)
+    T_pad = np.zeros((KC, 3), np.float32)
+    T_pad[:K] = T
+    T_pad[K:, :2] = 1e6
+    A_pad = np.zeros((NA, 2), np.float32)
+    A_pad[:nA] = A
+    B_pad = np.zeros((NB, 2), np.float32)
+    B_pad[:nB] = B
     cnt, err = _score_hypotheses(
-        torch.as_tensor(T, device=dev),
-        torch.as_tensor(A, dtype=torch.float32, device=dev),
-        torch.ones(nA, dtype=torch.bool, device=dev),
-        torch.as_tensor(B, dtype=torch.float32, device=dev),
-        torch.ones(nB, dtype=torch.bool, device=dev),
+        torch.as_tensor(T_pad, device=dev),
+        torch.as_tensor(A_pad, device=dev),
+        torch.as_tensor(np.arange(NA) < nA, device=dev),
+        torch.as_tensor(B_pad, device=dev),
+        torch.as_tensor(np.arange(NB) < nB, device=dev),
         float(np.float32(inlier_threshold**2)),
     )
-    scores = torch.stack([cnt.to(torch.float32), err]).cpu().numpy()
+    scores = torch.stack([cnt.to(torch.float32), err])[:, :K].cpu().numpy()
     cnt, err = scores[0].astype(np.int64), scores[1]
     best = int(np.argmax(cnt.astype(np.float64) - 1e-3 * err / (1.0 + err)))
     if cnt[best] < min_inliers:

@@ -4,16 +4,17 @@
 Re-design of the reference feature-tracker stack
 (``slam/feature_tracker.h:326-430``; main loop ``slam/tracker_test.cpp:155``):
 
-- the map is a flat-array `PoseGraph2D` built from host lists at exact
-  counts (the JAX package pads to powers of two so that XLA compiles
-  rarely; the `reserve_*` fields of the config set those capacities there
-  and change nothing here);
+- the map is a flat-array `PoseGraph2D` built from host lists and padded,
+  as the JAX package pads it, to power-of-two capacities (at least the
+  config's `reserve_*` fields): the solvers then see a handful of shapes
+  over a whole run, and each shape's CUDA graphs are captured once
+  (`utils.graphs`); the sliding window is a subgraph of fixed capacity;
 - per-frame data association runs on `device`: an (O, L) distance matrix
   between world-predicted observations and landmark estimates, gated
   mutual-nearest-neighbour assignment, then vectorized RANSAC
   (`ransac.engine` with the Horn2D solver) to reject wrong matches and
   correct the predicted pose (``feature_tracker_pointxy.h:13-133``). The
-  observations stay padded to `_np_cap` buckets as in the JAX package,
+  observations stay padded to `_cap` buckets as in the JAX package,
   so the (K, O) hypothesis draws have the same shapes in both;
 - landmark lifecycle follows ``MapperState::updateTracksAndLandmarks``
   (``feature_tracker.h:340-393``): unmatched observations become pending
@@ -27,6 +28,10 @@ Re-design of the reference feature-tracker stack
 
 Host Python orchestrates, as the reference's main loop does; each frame
 reads the association once and the RANSAC verdict once (one stacked copy).
+The functions the JAX package jits (`_associate_nn`,
+`_associate_nn_mahal`, the RANSAC of ``ransac/engine.py``) are
+`utils.graphs.Stage`s: on the card each key (the padded bucket shapes) is
+captured once and replayed.
 
 Every RANSAC draw goes through `FeatureTracker2D._minimal_sets`: a CPU
 `torch.Generator` seeded from `config.seed`, so the card and the CPU draw
@@ -40,9 +45,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..graph.store import PoseGraph2D
+from ..graph.store import PoseGraph2D, _cap, _edge_arrays, _pad, _padded_edges, _tensors
 from ..ransac import solvers as rsolvers
 from ..ransac.engine import _sample_minimal_sets, ransac
+from ..utils import graphs
 
 # ---------------------------------------------------------------------------
 # device kernels
@@ -60,7 +66,7 @@ def _mutual_nn(d2, obs_mask, accept):
     return torch.where(ok, nn_of_obs, -1), best
 
 
-def _associate_nn(obs_world, obs_mask, lms, lm_mask, gate):
+def _associate_nn_body(obs_world, obs_mask, lms, lm_mask, gate):
     """Gated mutual-NN assignment between observations and landmarks.
 
     Returns (match_idx (O,) landmark index or -1, dists (O,)).
@@ -70,7 +76,7 @@ def _associate_nn(obs_world, obs_mask, lms, lm_mask, gate):
     return _mutual_nn(d2, obs_mask, lambda best: best < gate * gate)
 
 
-def _associate_nn_mahal(obs_world, obs_mask, lms, lm_mask, Sinv, chi2_gate, eucl_cap):
+def _associate_nn_mahal_body(obs_world, obs_mask, lms, lm_mask, Sinv, chi2_gate, eucl_cap):
     """Mahalanobis-gated mutual-NN assignment.
 
     ``Sinv[l]`` is the inverse of landmark l's association covariance
@@ -86,6 +92,11 @@ def _associate_nn_mahal(obs_world, obs_mask, lms, lm_mask, Sinv, chi2_gate, eucl
     valid = obs_mask[:, None] & lm_mask[None, :] & (d2e < eucl_cap * eucl_cap)
     d2m = torch.where(valid, d2m, 1e12)
     return _mutual_nn(d2m, obs_mask, lambda best: best < chi2_gate)
+
+
+# the JAX package's jitted association kernels, captured once per key on the card
+_associate_nn = graphs.Stage("associate_nn", _associate_nn_body)
+_associate_nn_mahal = graphs.Stage("associate_nn_mahal", _associate_nn_mahal_body)
 
 
 def _ransac_verify(minimal_sets, obs_local, lm_world, pairs_mask, thresh):
@@ -163,20 +174,13 @@ class Tracker2DConfig:
     closure_min_inliers: int = 5
     closure_cluster_tol: float = 3.0  # consecutive-proposal agreement (m)
     closure_cluster_rot_tol: float = 0.15
-    # minimum graph capacities of the JAX package's padded graphs (its
-    # solvers compile once per capacity); the port packs exact counts
+    # minimum capacities of the padded global graph (`graph()`): reserving
+    # the final size up front gives the solvers one shape for a whole run
     reserve_poses: int = 0
     reserve_landmarks: int = 0
     reserve_odom_edges: int = 0
     reserve_obs_edges: int = 0
     seed: int = 0
-
-
-def _np_cap(n: int, minimum: int = 8) -> int:
-    c = minimum
-    while c < n:
-        c *= 2
-    return c
 
 
 def _se2_compose_np(a, b):
@@ -203,32 +207,20 @@ def _se2_apply_np(x, pts):
     return pts @ R.T + x[:2]
 
 
-def _pose_graph(poses, landmarks, landmark_mask, odo, obs, fixed, device) -> PoseGraph2D:
-    """A PoseGraph2D on `device` at exact counts from host arrays and edge
-    lists [(i, j, z, info)] (indices already into `poses` / `landmarks`)."""
-
-    def edges(es, d):
-        return (np.array([(e[0], e[1]) for e in es], np.int64).reshape(len(es), 2),
-                np.array([e[2] for e in es], np.float32).reshape(len(es), d),
-                np.array([e[3] for e in es], np.float32).reshape(len(es), d, d))
-
-    pp_ij, pp_z, pp_w = edges(odo, 3)
-    pl_ij, pl_z, pl_w = edges(obs, 2)
-
-    def t(a):
-        return torch.as_tensor(a, device=device)
-
-    return PoseGraph2D(
-        poses=t(np.asarray(poses, np.float32).reshape(-1, 3)),
-        pose_mask=torch.ones(len(poses), dtype=torch.bool, device=device),
-        landmarks=t(np.asarray(landmarks, np.float32).reshape(-1, 2)),
-        landmark_mask=t(np.asarray(landmark_mask, bool)),
-        pp_ij=t(pp_ij), pp_meas=t(pp_z), pp_info=t(pp_w),
-        pp_mask=torch.ones(len(odo), dtype=torch.bool, device=device),
-        pl_ij=t(pl_ij), pl_meas=t(pl_z), pl_info=t(pl_w),
-        pl_mask=torch.ones(len(obs), dtype=torch.bool, device=device),
-        fixed=t(np.asarray(fixed, bool)),
-    )
+def _pose_graph(poses, landmarks, landmark_mask, odo, obs, fixed, caps, device) -> PoseGraph2D:
+    """A PoseGraph2D on `device` from host arrays and edge lists [(i, j, z,
+    info)] (indices already into `poses` / `landmarks`), padded as the JAX
+    package pads it to `caps` = (poses, landmarks, pose-pose edges,
+    pose-landmark edges) rows: padded rows are zero, masked off and not
+    fixed (`graph.store._pad`, `_padded_edges`)."""
+    NP, NL, EP, EL = caps
+    n, nl = len(poses), len(landmarks)
+    return _tensors(PoseGraph2D, dict(
+        poses=_pad(np.asarray(poses, np.float32).reshape(n, 3), NP), pose_mask=np.arange(NP) < n,
+        landmarks=_pad(np.asarray(landmarks, np.float32).reshape(nl, 2), NL),
+        landmark_mask=_pad(np.asarray(landmark_mask, bool), NL),
+        **_padded_edges("pp", _edge_arrays(odo, 3), EP), **_padded_edges("pl", _edge_arrays(obs, 2), EL),
+        fixed=_pad(np.asarray(fixed, bool), NP)), torch.float32, device)
 
 
 class FeatureTracker2D:
@@ -270,17 +262,22 @@ class FeatureTracker2D:
 
     # -- graph snapshot -----------------------------------------------------
     def _graph(self, window_fix_before, device) -> PoseGraph2D:
+        cfg = self.cfg
         n = len(self.poses)
         fixed = np.zeros(n, bool)
         fixed[:1] = True
         if window_fix_before is not None:
             fixed[: min(window_fix_before, n)] = True
-        return _pose_graph(self.poses, self.landmarks, self.lm_alive, self.odom_edges, self.obs_edges, fixed,
+        caps = (_cap(max(n, 1, cfg.reserve_poses)), _cap(max(len(self.landmarks), 1, cfg.reserve_landmarks)),
+                _cap(max(len(self.odom_edges), 1, cfg.reserve_odom_edges)),
+                _cap(max(len(self.obs_edges), 1, cfg.reserve_obs_edges)))
+        return _pose_graph(self.poses, self.landmarks, self.lm_alive, self.odom_edges, self.obs_edges, fixed, caps,
                            device)
 
     def graph(self, window_fix_before: int | None = None) -> PoseGraph2D:
-        """A PoseGraph2D snapshot on the tracker's device (optionally
-        freezing the poses before `window_fix_before`)."""
+        """A PoseGraph2D snapshot on the tracker's device, padded to the
+        capacity buckets (optionally freezing the poses before
+        `window_fix_before`)."""
         return self._graph(window_fix_before, self.device)
 
     def _sync_from_graph(self, g):
@@ -509,9 +506,9 @@ class FeatureTracker2D:
         JAX package, so that its RANSAC draws fit these shapes."""
         cfg = self.cfg
         O = len(obs_local)
-        OC = _np_cap(max(O, 1))
+        OC = _cap(max(O, 1))
         L = len(self.landmarks)
-        LC = _np_cap(max(L, 1))
+        LC = _cap(max(L, 1))
         obs_world = _se2_apply_np(np.asarray(pose, np.float32), obs_local)
         obs_pad = np.zeros((OC, 2), np.float32)
         obs_pad[:O] = obs_world
@@ -656,15 +653,17 @@ class FeatureTracker2D:
         nl = len(self.landmarks)
         if nl == 0 or not self.lm_alive.any():
             return
-        cov = landmark_covariance_se2(self.graph())  # (NL, 2, NL, 2)
+        cov = landmark_covariance_se2(self.graph())  # (NL, 2, NL, 2), NL the landmark capacity
         self.lm_cov = cov.diagonal(dim1=0, dim2=2).permute(2, 0, 1)[:nl].cpu().numpy().astype(np.float32)
         self._cov_frame = self.frame
 
     def _optimize_window(self):
         """Local optimization over the sliding window (the
-        `OptimizationManager` local map of ``feature_tracker_closure.h``):
-        the last `local_map_size` poses and the landmarks they observe;
-        landmarks observed before the window stay fixed."""
+        `OptimizationManager` local map of ``feature_tracker_closure.h``) as
+        a subgraph of fixed capacity: the last `local_map_size` poses and
+        the landmarks they observe, padded to power-of-two buckets as the
+        JAX package pads them, so that the solver sees a handful of shapes
+        over a whole run; landmarks observed before the window stay fixed."""
         from ..solvers.pose_graph import optimize_se2
 
         cfg = self.cfg
@@ -681,10 +680,13 @@ class FeatureTracker2D:
         lm_free = np.array([l not in seen_before for l in lm_ids], bool)
         fixed = np.zeros(W, bool)
         fixed[0] = True  # gauge: anchor the window's first pose
+        caps = (_cap(cfg.local_map_size), _cap(max(len(lm_ids), 1)), _cap(max(len(odo), 1)),
+                _cap(max(len(obs), 1)))
         g = _pose_graph(self.poses[start:], self.landmarks[lm_ids], lm_free, odo,
-                        [(p - start, lmap[l], z, w) for (p, l, z, w) in obs], fixed, self.device)
+                        [(p - start, lmap[l], z, w) for (p, l, z, w) in obs], fixed, caps, self.device)
         g_opt, stats = optimize_se2(g, iters=cfg.local_optimize_iters, cg_iters=cfg.local_cg_iters)
-        out = torch.cat([g_opt.poses.flatten(), g_opt.landmarks.flatten(), stats.chi2[-1:]]).cpu().numpy()
+        out = torch.cat([g_opt.poses[:W].flatten(), g_opt.landmarks[: len(lm_ids)].flatten(),
+                         stats.chi2[-1:]]).cpu().numpy()
         new_poses = out[: 3 * W].reshape(W, 3)
         for k in range(W):
             self.poses[start + k] = new_poses[k]
@@ -712,8 +714,8 @@ class FeatureTracker2D:
         old = np.array([l for l in range(nl) if self.lm_alive[l] and l not in recent_set], np.int64)
         if len(recent) < 3 or len(old) < 3:
             return 0
-        RC = _np_cap(len(recent))
-        OC = _np_cap(len(old))
+        RC = _cap(len(recent))
+        OC = _cap(len(old))
         rec_pad = np.zeros((RC, 2), np.float32)
         rec_pad[: len(recent)] = self.landmarks[recent]
         rec_mask = np.arange(RC) < len(recent)
@@ -779,7 +781,7 @@ class FeatureTracker2D:
             si, oi = np.nonzero(d2 < gate * gate)
             if len(si) < 3:
                 continue
-            RC = _np_cap(len(si))
+            RC = _cap(len(si))
             src = np.zeros((RC, 2), np.float32)
             src[: len(si)] = L_seg[si]
             tgt = np.zeros((RC, 2), np.float32)
@@ -910,7 +912,7 @@ class FeatureTracker2D:
             edges.append((i, j, _se2_rel_np(X_old[i], aj_corr.astype(np.float64)), w_cls))
         fixed = np.zeros(S, bool)
         fixed[0] = True
-        gc = _pose_graph(X_old, np.zeros((0, 2)), np.zeros(0, bool), edges, [], fixed, "cpu")
+        gc = _pose_graph(X_old, np.zeros((0, 2)), np.zeros(0, bool), edges, [], fixed, (S, 1, len(edges), 1), "cpu")
         ctl = control_optimize_se2(gc, max_iters=coarse_iters)
         X_new = np.asarray(ctl["poses"], np.float64)[:S]
 
@@ -998,7 +1000,8 @@ class FeatureTracker2D:
         alive = np.where(self.lm_alive)[0]
         if len(alive) < 2:
             return 0
-        cov = landmark_covariance_se2(self.graph()).cpu().numpy()  # (NL, 2, NL, 2)
+        nl = len(self.landmarks)
+        cov = landmark_covariance_se2(self.graph())[:nl, :, :nl].cpu().numpy()  # (nl, 2, nl, 2)
         P = self.landmarks[alive]
         d2 = np.sum((P[:, None] - P[None, :]) ** 2, -1)
         iu, ju = np.triu_indices(len(alive), k=1)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..laser.line_extraction import LineExtractorConfig, LineSet, extract_lines
-from ..solvers.line_slam import make_line_graph, optimize_line_graph
+from ..solvers.line_slam import _line_graph, optimize_line_graph
 from ..utils import lie
 
 
@@ -128,15 +128,25 @@ class LineSlam2D:
 
     def optimize(self):
         """LM over the whole graph on the device; poses and lines take the
-        result. Returns the final chi2."""
+        result. Returns the final chi2.
+
+        The graph is packed at its exact counts, where the JAX package pads
+        it (`solvers.line_slam.make_line_graph`): padding changes the
+        float32 sums' rounding, which this algorithm amplifies (one LM step
+        far out turns 1e-4 m into 0.6 m): padded, the 452-scan world of
+        `chip_smoke.py` made 212 lines on an H100, outside its `LINE_BAND`
+        around the JAX package's 189. So each solve is a new key of
+        `utils.graphs.solve_loop`: its CG blocks replay a graph, its head
+        and tail run eagerly."""
         cfg = self.cfg
-        g = make_line_graph(np.asarray(self.poses), self.lines, self.pp_edges, self.pl_edges, device=self.device)
+        n, nl, ep, el = len(self.poses), len(self.lines), len(self.pp_edges), len(self.pl_edges)
+        g = _line_graph(np.asarray(self.poses), self.lines, self.pp_edges, self.pl_edges, (0,), (n, nl, ep, el),
+                        torch.float32, self.device)
         g_opt, trace = optimize_line_graph(g, iters=cfg.optimize_iters, cg_iters=cfg.cg_iters)
-        n = len(self.poses)
-        poses = g_opt.poses.cpu().double().numpy()[:n]
+        poses = g_opt.poses[:n].cpu().double().numpy()
         for i in range(n):
             self.poses[i] = poses[i]
-        self.lines = g_opt.lines.cpu().double().numpy()
+        self.lines = g_opt.lines[:nl].cpu().double().numpy()
         return float(trace[-1])
 
     def merge_landmarks(self):

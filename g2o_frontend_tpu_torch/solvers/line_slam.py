@@ -18,24 +18,26 @@ landmarks of the LM solver:
 
 Jacobians by `torch.func.jacfwd` of each edge batch with respect to one
 shared increment, as `pose_graph.linearize_se3` does: every edge's
-residual depends on its own ends only. The graph is packed at its exact
-counts (the JAX version pads to powers of two: compare prefixes); its
-tensors set the device. Accept or reject stays on the device; the host
-reads PCG's stopping test once a CG iteration.
+residual depends on its own ends only. `make_line_graph` pads the graph to
+power-of-two capacities as the JAX version does (padded rows masked off);
+its tensors set the device. The LM loop runs as the JAX version's
+``fori_loop`` through `utils.graphs.solve_loop`: on the card a graph for
+an LM iteration's head, one for each block of `pcg.BLOCK` masked CG steps
+(the stopping test computed on the device, read once a block) and one for
+its tail, accept or reject on the device.
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ..graph.store import _edge_arrays, _fixed_rows, _tensors
-from ..utils import lie
-from .pcg import pcg
-from .pose_graph import (Linearization, _block_jacobi_precond, _compose_hvp, _diag_blocks_se2, _grad_se2,
-                         _hvp_edges_se2, _weigh, edge_segments, se2_pp_residual)
+from ..graph.store import _cap, _edge_arrays, _fixed_rows, _pad, _padded_edges, _tensors
+from ..utils import graphs, lie
+from .pcg import cg_carry, cg_loop
+from .pose_graph import (Linearization, LMState, _cg_report, _damped_inverse, _diag_blocks_se2, _grad_se2, _Mid,
+                         _se2_operators, _SE2Consts, _start, _weigh, edge_segments, se2_pp_residual, trace_put)
 
 
 class LineGraph(NamedTuple):
@@ -122,64 +124,103 @@ def _linearize(g: LineGraph, jacobians: bool = True) -> Linearization:
     return Linearization(e_pp, Ji, Jj, w_pp, e_pl, Jp, Jl, w_pl, chi2_pp + chi2_pl)
 
 
-def lm_with_landmarks(poses, lms, pp_ij, pl_ij, free_p, free_l, linearize, retract, iters, cg_iters, lm_lambda0):
+class _Model(NamedTuple):
+    """A landmark graph's static parameters (part of its graphs' key):
+    linearize(g, poses, lms, jacobians) -> `pose_graph.Linearization`,
+    retract(poses, lms, dp, dl) -> the updated (poses, lms)."""
+
+    linearize: Callable
+    retract: Callable
+    cg_iters: int
+    precond = "jacobi"  # `pose_graph._se2_operators`' block-Jacobi preconditioner on both blocks
+
+
+def _head(inputs, st: LMState):
+    """Linearize, the gradient and block diagonal, the preconditioner,
+    start CG."""
+    g, c, model = inputs
+    lin = model.linearize(g, st.poses, st.lms, True)
+    gp, gl = _grad_se2(g, lin, c.seg)
+    Dp, Dl = _diag_blocks_se2(g, lin, c.seg)
+    mid = _Mid(lin, Dp, Dl, st.lam, (_damped_inverse(Dp, st.lam, c.free_p), _damped_inverse(Dl, st.lam, c.free_l)),
+               None)
+    carry, tol2 = cg_carry((-gp * c.free_p[:, None], -gl * c.free_l[:, None]), _se2_operators((inputs, mid))[1],
+                           1e-8)
+    return mid._replace(tol2=tol2), carry
+
+
+def _tail(inputs, st: LMState, mid: _Mid, carry) -> LMState:
+    """Retract, the new chi2, accept or reject, lambda, the trace."""
+    g, c, model = inputs
+    dp, dl = carry.x
+    new_poses, new_lms = model.retract(st.poses, st.lms, dp * c.free_p[:, None], dl * c.free_l[:, None])
+    new_chi2 = model.linearize(g, new_poses, new_lms, False).chi2
+    accept = new_chi2 < mid.lin.chi2
+    poses = torch.where(accept, new_poses, st.poses)
+    lms = torch.where(accept, new_lms, st.lms)
+    lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
+    trace = trace_put(st.trace, st.k, torch.where(accept, new_chi2, mid.lin.chi2))
+    return LMState(poses, lms, lam, trace, st.k + 1, st.cg_total + carry.k)
+
+
+def lm_with_landmarks(name, g, lms, free_p, free_l, linearize, retract, iters, cg_iters, lm_lambda0):
     """The LM loop of a pose graph with landmarks (lines, planes): block-
     Jacobi PCG on the pose and landmark blocks, LM damping on the diagonal
-    blocks, accept or reject on the device.
+    blocks, accept or reject on the device; `iters` LM iterations (JAX's
+    ``fori_loop``) run by `utils.graphs.solve_loop` as `name`.
 
-    linearize(poses, lms, jacobians) -> `pose_graph.Linearization`;
-    retract(poses, lms, dp, dl) -> the updated (poses, lms). Returns (poses,
-    lms, chi2 trace (iters+1,))."""
-    layout = SimpleNamespace(poses=poses, landmarks=lms, pp_ij=pp_ij, pl_ij=pl_ij)
-    seg = edge_segments(layout)  # the edge ends sorted once, for every sum of the solve
-    lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
-    trace = [linearize(poses, lms, False).chi2]
-    for _ in range(iters):
-        lin = linearize(poses, lms, True)
-        gp, gl = _grad_se2(layout, lin, seg)
-        Dp, Dl = _diag_blocks_se2(layout, lin, seg)
-        hvp = _compose_hvp(_hvp_edges_se2(layout, lin, seg), free_p, free_l, lam, Dp, Dl)
-        precond = _block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
-        (dp, dl), _, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), precond, max_iters=cg_iters,
-                             rtol=1e-8)
-        new_poses, new_lms = retract(poses, lms, dp * free_p[:, None], dl * free_l[:, None])
-        new_chi2 = linearize(new_poses, new_lms, False).chi2
-        accept = new_chi2 < lin.chi2
-        poses = torch.where(accept, new_poses, poses)
-        lms = torch.where(accept, new_lms, lms)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
-        trace.append(torch.where(accept, new_chi2, lin.chi2))
-    return poses, lms, torch.stack(trace)
+    g: the graph (a tree of tensors with poses, pp_ij, pl_ij and their
+    masks);
+    linearize(g, poses, lms, jacobians) -> `pose_graph.Linearization`;
+    retract(poses, lms, dp, dl) -> the updated (poses, lms), both module
+    functions (they are part of the graphs' key). Returns (poses, lms, chi2
+    trace (iters+1,))."""
+    # the edge ends sorted once, for every sum of the solve
+    inputs = (g, _SE2Consts(free_p, free_l, edge_segments(g, lms.shape[0]), None, None),
+              _Model(linearize, retract, cg_iters))
+    state = _start(g, linearize(g, g.poses, lms, False).chi2, lm_lambda0, iters, lms)
+    solve = graphs.Solve(_head, _tail, _cg_report, cg_loop(_se2_operators, lambda cs: cs[1].tol2, cg_iters))
+    st, _ = graphs.solve_loop(name, solve, inputs, state, iters)
+    return st.poses, st.lms, st.trace
 
 
 def _wrap_col(x, col):
     return torch.cat([x[:, :col], lie.wrap_angle(x[:, col:col + 1]), x[:, col + 1:]], 1)
 
 
+def _linearize_at(g: LineGraph, poses, lines, jacobians):
+    return _linearize(g._replace(poses=poses, lines=lines), jacobians)
+
+
+def _retract(poses, lines, dp, dl):
+    return _wrap_col(poses + dp, 2), _wrap_col(lines + dl, 0)
+
+
 def optimize_line_graph(g: LineGraph, iters: int = 10, cg_iters: int = 60, lm_lambda0: float = 1e-4):
     """LM over poses and line landmarks; returns (graph, chi2 trace (iters+1,))."""
-
-    def linearize(poses, lines, jacobians):
-        return _linearize(g._replace(poses=poses, lines=lines), jacobians)
-
-    def retract(poses, lines, dp, dl):
-        return _wrap_col(poses + dp, 2), _wrap_col(lines + dl, 0)
-
     poses, lines, trace = lm_with_landmarks(
-        g.poses, g.lines, g.pp_ij, g.pl_ij, (g.pose_mask & ~g.fixed).to(g.poses.dtype), g.line_mask.to(g.poses.dtype),
-        linearize, retract, iters, cg_iters, lm_lambda0)
+        "optimize_line_graph", g, g.lines, (g.pose_mask & ~g.fixed).to(g.poses.dtype), g.line_mask.to(g.poses.dtype),
+        _linearize_at, _retract, iters, cg_iters, lm_lambda0)
     return g._replace(poses=poses, lines=lines), trace
 
 
 def make_line_graph(poses, lines, pp_edges, pl_edges, fixed_idx=(0,), dtype=torch.float32,
                     device="cuda") -> LineGraph:
-    """A LineGraph on `device` from host lists at their exact counts:
-    poses (N, 3), lines (L, 2), edges (i, j, z, info)."""
+    """A LineGraph on `device` from host lists, padded as the JAX version
+    pads it to power-of-two capacities (zero rows, masked off): poses (N,
+    3), lines (L, 2), edges (i, j, z, info)."""
+    caps = (_cap(max(len(poses), 1)), _cap(max(len(lines), 1)), _cap(max(len(pp_edges), 1)),
+            _cap(max(len(pl_edges), 1)))
+    return _line_graph(poses, lines, pp_edges, pl_edges, fixed_idx, caps, dtype, device)
+
+
+def _line_graph(poses, lines, pp_edges, pl_edges, fixed_idx, caps, dtype, device) -> LineGraph:
+    """`make_line_graph` with `caps` = (poses, lines, pose-pose edges,
+    pose-line edges) rows."""
     n, nl = len(poses), len(lines)
-    pp_ij, pp_z, pp_w, pp_m = _edge_arrays(pp_edges, 3)
-    pl_ij, pl_z, pl_w, pl_m = _edge_arrays(pl_edges, 2)
+    NP, NL, EP, EL = caps
     return _tensors(LineGraph, dict(
-        poses=np.asarray(poses, np.float64).reshape(n, 3), pose_mask=np.ones(n, bool),
-        lines=np.asarray(lines, np.float64).reshape(nl, 2), line_mask=np.ones(nl, bool),
-        pp_ij=pp_ij, pp_meas=pp_z, pp_info=pp_w, pp_mask=pp_m,
-        pl_ij=pl_ij, pl_meas=pl_z, pl_info=pl_w, pl_mask=pl_m, fixed=_fixed_rows(n, fixed_idx)), dtype, device)
+        poses=_pad(np.asarray(poses, np.float64).reshape(n, 3), NP), pose_mask=np.arange(NP) < n,
+        lines=_pad(np.asarray(lines, np.float64).reshape(nl, 2), NL), line_mask=np.arange(NL) < nl,
+        **_padded_edges("pp", _edge_arrays(pp_edges, 3), EP), **_padded_edges("pl", _edge_arrays(pl_edges, 2), EL),
+        fixed=_pad(_fixed_rows(n, fixed_idx), NP)), dtype, device)

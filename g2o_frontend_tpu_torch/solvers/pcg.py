@@ -10,8 +10,8 @@ max_iters`` and ``r.z > rtol^2 * max(r0.z, 1e-30)``.
 Two forms share the arithmetic (`cg_start`, `cg_step`):
 
 - `pcg`, the eager loop: the stopping test read on the host once an
-  iteration. The distributed solvers (`parallel/`, with their `tree_dot`),
-  line SLAM and BA call it.
+  iteration. Only the distributed solvers (`parallel/`, with their
+  `tree_dot`) call it, until their own loops run as graphs.
 - `cg_loop`, the loop as a `utils.graphs.Loop` with the JAX test computed
   on the device: `graphs.while_loop` (and the solvers' `graphs.solve_loop`)
   runs it in blocks of `BLOCK` masked steps, one host read of the test a

@@ -17,9 +17,11 @@ calibration edges (``PlaneEx/plane_g2o.cpp:216-241,383-391``,
   the line graph's LM loop (`line_slam.lm_with_landmarks`).
 
 Jacobians by `torch.func.jacfwd` of each edge batch with respect to one
-shared local increment (as `pose_graph.linearize_se3`). The graph is packed
-at its exact counts; its tensors set the device. Accept or reject stays on
-the device; the host reads PCG's stopping test once a CG iteration.
+shared local increment (as `pose_graph.linearize_se3`). `make_plane_graph`
+pads the graph to power-of-two capacities as the JAX version does; its
+tensors set the device. The LM loop is the line graph's, run through
+`utils.graphs.solve_loop` (accept or reject on the device, CG's stopping
+test read once a block of `pcg.BLOCK` steps).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..graph.store import _edge_arrays, _fixed_rows, _tensors
+from ..graph.store import _cap, _edge_arrays, _fixed_rows, _pad, _padded_edges, _tensors
 from ..utils import lie
 from .line_slam import lm_with_landmarks
 from .pose_graph import Linearization, _pose7_to_T, _T_to_pose7, _weigh, se3_pp_residual_local
@@ -54,8 +56,9 @@ class PlaneGraph(NamedTuple):
 
 def _plane_tangent(n):
     """Two unit tangent vectors orthogonal to each of (..., 3) normals."""
-    ez = n.new_tensor([0.0, 0.0, 1.0]).expand_as(n)
-    ex = n.new_tensor([1.0, 0.0, 0.0]).expand_as(n)
+    # the axes made on the device: a host-made row is a copy a CUDA graph cannot capture
+    eye = torch.eye(3, dtype=n.dtype, device=n.device)
+    ez, ex = eye[2].expand_as(n), eye[0].expand_as(n)
     ref = torch.where(torch.abs(n[..., 2:3]) < 0.9, ez, ex)
     t1 = torch.linalg.cross(n, ref)
     t1 = t1 / torch.clamp_min(torch.linalg.vector_norm(t1, dim=-1, keepdim=True), 1e-9)
@@ -103,30 +106,34 @@ def _linearize(g: PlaneGraph, jacobians: bool = True) -> Linearization:
     return Linearization(e_pp, Ji, Jj, w_pp, e_pl, Jp, Jl, w_pl, chi2_pp + chi2_pl)
 
 
+def _linearize_at(g: PlaneGraph, poses, planes, jacobians):
+    return _linearize(g._replace(poses=poses, planes=planes), jacobians)
+
+
+def _retract(poses, planes, dp, dl):
+    return _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dp)), _apply_plane_update(planes, dl)
+
+
 def optimize_plane_graph(g: PlaneGraph, iters: int = 10, cg_iters: int = 60, lm_lambda0: float = 1e-4):
     """LM over poses + plane landmarks; returns (graph, chi2 trace (iters+1,))."""
-
-    def linearize(poses, planes, jacobians):
-        return _linearize(g._replace(poses=poses, planes=planes), jacobians)
-
-    def retract(poses, planes, dp, dl):
-        return _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dp)), _apply_plane_update(planes, dl)
-
     poses, planes, trace = lm_with_landmarks(
-        g.poses, g.planes, g.pp_ij, g.pl_ij, (g.pose_mask & ~g.fixed).to(g.poses.dtype),
-        g.plane_mask.to(g.poses.dtype), linearize, retract, iters, cg_iters, lm_lambda0)
+        "optimize_plane_graph", g, g.planes, (g.pose_mask & ~g.fixed).to(g.poses.dtype),
+        g.plane_mask.to(g.poses.dtype), _linearize_at, _retract, iters, cg_iters, lm_lambda0)
     return g._replace(poses=poses, planes=planes), trace
 
 
 def make_plane_graph(poses7, planes4, pp_edges, pl_edges, fixed_idx=(0,), dtype=torch.float32,
                      device="cuda") -> PlaneGraph:
-    """A PlaneGraph on `device` from host lists at their exact counts:
-    poses (N, 7), planes (L, 4), edges (i, j, z, info)."""
+    """A PlaneGraph on `device` from host lists, padded as the JAX version
+    pads it to power-of-two capacities (identity poses and measurements,
+    the plane z = 0, zero information, masked off): poses (N, 7), planes
+    (L, 4), edges (i, j, z, info)."""
     n, nl = len(poses7), len(planes4)
-    pp_ij, pp_z, pp_w, pp_m = _edge_arrays(pp_edges, 7)
-    pl_ij, pl_z, pl_w, pl_m = _edge_arrays(pl_edges, 4)
+    NP, NL, EP, EL = _cap(max(n, 1)), _cap(max(nl, 1)), _cap(max(len(pp_edges), 1)), _cap(max(len(pl_edges), 1))
+    identity, plane0 = np.eye(1, 7, 6)[0], np.eye(1, 4, 2)[0]  # [0 0 0 0 0 0 1], [0 0 1 0]
     return _tensors(PlaneGraph, dict(
-        poses=np.asarray(poses7, np.float64).reshape(n, 7), pose_mask=np.ones(n, bool),
-        planes=np.asarray(planes4, np.float64).reshape(nl, 4), plane_mask=np.ones(nl, bool),
-        pp_ij=pp_ij, pp_meas=pp_z, pp_info=pp_w, pp_mask=pp_m,
-        pl_ij=pl_ij, pl_meas=pl_z, pl_info=pl_w, pl_mask=pl_m, fixed=_fixed_rows(n, fixed_idx)), dtype, device)
+        poses=_pad(np.asarray(poses7, np.float64).reshape(n, 7), NP, identity), pose_mask=np.arange(NP) < n,
+        planes=_pad(np.asarray(planes4, np.float64).reshape(nl, 4), NL, plane0), plane_mask=np.arange(NL) < nl,
+        **_padded_edges("pp", _edge_arrays(pp_edges, 7, 6), EP, identity),
+        **_padded_edges("pl", _edge_arrays(pl_edges, 4), EL, plane0),
+        fixed=_pad(_fixed_rows(n, fixed_idx), NP)), dtype, device)

@@ -98,12 +98,21 @@ class EdgeSegments(NamedTuple):
     pl_l: ss.SegmentIndex
 
 
-def edge_segments(g) -> EdgeSegments:
-    """`EdgeSegments` of a graph (or any namespace with poses, landmarks,
-    pp_ij and pl_ij)."""
-    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
-    return EdgeSegments(ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP),
-                        ss.SegmentIndex(g.pl_ij[:, 0], NP), ss.SegmentIndex(g.pl_ij[:, 1], NL))
+def masked_segments(index, mask, n) -> ss.SegmentIndex:
+    """The `SegmentIndex` of `index` into n rows with the masked-off rows
+    (a padded graph's padding, which joins row 0 to row 0 with zero
+    information) sent to the dump slot: they add nothing, and row 0 does
+    not become one long segment of zeros."""
+    return ss.SegmentIndex(torch.where(mask, index, n), n)
+
+
+def edge_segments(g, n_landmarks: int | None = None) -> EdgeSegments:
+    """`EdgeSegments` of a graph (or any object with poses, pp_ij, pl_ij,
+    pp_mask, pl_mask, and landmarks unless `n_landmarks` is given)."""
+    NP = g.poses.shape[0]
+    NL = g.landmarks.shape[0] if n_landmarks is None else n_landmarks
+    return EdgeSegments(masked_segments(g.pp_ij[:, 0], g.pp_mask, NP), masked_segments(g.pp_ij[:, 1], g.pp_mask, NP),
+                        masked_segments(g.pl_ij[:, 0], g.pl_mask, NP), masked_segments(g.pl_ij[:, 1], g.pl_mask, NL))
 
 
 # -- SE2 ----------------------------------------------------------------------------

@@ -1,16 +1,23 @@
-"""The 2D and 3D backend's LM loops as they were before they ran through
+"""The backend's LM loops as they were before they ran through
 ``utils/graphs.solve_loop``: verbatim copies of the eager loops (PCG's
 stopping test and the convergence tests read on the host), which
-``tests/test_torch_solver_graphs.py`` holds the port's solvers to bit for
-bit. The helpers they call are the port's own."""
+``tests/test_torch_solver_graphs.py`` (the 2D and 3D pose graphs) and
+``tests/test_torch_landmark_graphs.py`` (line SLAM, the plane graph, BA)
+hold the port's solvers to bit for bit. The helpers they call are the
+port's own, but for `landmark_edge_segments`, the landmark loops' edge
+sort as it was then (every edge into its own row, padding included)."""
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable
 
 import torch
 
 from g2o_frontend_tpu_torch.graph.store import PoseGraph2D, PoseGraph3D
 from g2o_frontend_tpu_torch.ops import segment_sum as ss
+from g2o_frontend_tpu_torch.solvers import ba as tba
+from g2o_frontend_tpu_torch.solvers import line_slam as tls
+from g2o_frontend_tpu_torch.solvers import plane_slam as tps
 from g2o_frontend_tpu_torch.solvers import pose_graph as pg
 from g2o_frontend_tpu_torch.solvers.pose_graph import (PRECONDITIONERS, OptStats, _block_jacobi_precond, _chain,
                                                        _chain_blocks, _compose_hvp, _damped, _damped_inverse,
@@ -406,3 +413,142 @@ def optimize_se3(
         trace.append(torch.where(accept, lin_new.chi2, lin.chi2))
         cg_total += cg_k
     return g.with_poses(poses), OptStats(torch.stack(trace), lam, cg_total)
+
+
+# -- the landmark graphs' loops (line SLAM, the plane graph, BA) --------------------------
+
+
+def landmark_edge_segments(g) -> pg.EdgeSegments:
+    """`EdgeSegments` of a graph (or any namespace with poses, landmarks,
+    pp_ij and pl_ij)."""
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    return pg.EdgeSegments(ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP),
+                           ss.SegmentIndex(g.pl_ij[:, 0], NP), ss.SegmentIndex(g.pl_ij[:, 1], NL))
+
+
+def lm_with_landmarks(poses, lms, pp_ij, pl_ij, free_p, free_l, linearize, retract, iters, cg_iters, lm_lambda0):
+    """The LM loop of a pose graph with landmarks (lines, planes): block-
+    Jacobi PCG on the pose and landmark blocks, LM damping on the diagonal
+    blocks, accept or reject on the device.
+
+    linearize(poses, lms, jacobians) -> `pose_graph.Linearization`;
+    retract(poses, lms, dp, dl) -> the updated (poses, lms). Returns (poses,
+    lms, chi2 trace (iters+1,))."""
+    layout = SimpleNamespace(poses=poses, landmarks=lms, pp_ij=pp_ij, pl_ij=pl_ij)
+    seg = landmark_edge_segments(layout)  # the edge ends sorted once, for every sum of the solve
+    lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
+    trace = [linearize(poses, lms, False).chi2]
+    for _ in range(iters):
+        lin = linearize(poses, lms, True)
+        gp, gl = _grad_se2(layout, lin, seg)
+        Dp, Dl = _diag_blocks_se2(layout, lin, seg)
+        hvp = _compose_hvp(_hvp_edges_se2(layout, lin, seg), free_p, free_l, lam, Dp, Dl)
+        precond = _block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
+        (dp, dl), _, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), precond, max_iters=cg_iters,
+                             rtol=1e-8)
+        new_poses, new_lms = retract(poses, lms, dp * free_p[:, None], dl * free_l[:, None])
+        new_chi2 = linearize(new_poses, new_lms, False).chi2
+        accept = new_chi2 < lin.chi2
+        poses = torch.where(accept, new_poses, poses)
+        lms = torch.where(accept, new_lms, lms)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, lin.chi2))
+    return poses, lms, torch.stack(trace)
+
+
+def optimize_line_graph(g: tls.LineGraph, iters: int = 10, cg_iters: int = 60, lm_lambda0: float = 1e-4):
+    """LM over poses and line landmarks; returns (graph, chi2 trace (iters+1,))."""
+
+    def linearize(poses, lines, jacobians):
+        return tls._linearize(g._replace(poses=poses, lines=lines), jacobians)
+
+    def retract(poses, lines, dp, dl):
+        return tls._wrap_col(poses + dp, 2), tls._wrap_col(lines + dl, 0)
+
+    poses, lines, trace = lm_with_landmarks(
+        g.poses, g.lines, g.pp_ij, g.pl_ij, (g.pose_mask & ~g.fixed).to(g.poses.dtype), g.line_mask.to(g.poses.dtype),
+        linearize, retract, iters, cg_iters, lm_lambda0)
+    return g._replace(poses=poses, lines=lines), trace
+
+
+def optimize_plane_graph(g: tps.PlaneGraph, iters: int = 10, cg_iters: int = 60, lm_lambda0: float = 1e-4):
+    """LM over poses + plane landmarks; returns (graph, chi2 trace (iters+1,))."""
+
+    def linearize(poses, planes, jacobians):
+        return tps._linearize(g._replace(poses=poses, planes=planes), jacobians)
+
+    def retract(poses, planes, dp, dl):
+        return _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dp)), tps._apply_plane_update(planes, dl)
+
+    poses, planes, trace = lm_with_landmarks(
+        g.poses, g.planes, g.pp_ij, g.pl_ij, (g.pose_mask & ~g.fixed).to(g.poses.dtype),
+        g.plane_mask.to(g.poses.dtype), linearize, retract, iters, cg_iters, lm_lambda0)
+    return g._replace(poses=poses, planes=planes), trace
+
+
+def optimize_ba(ba: tba.BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambda0: float = 1e-4):
+    """LM-BA with matrix-free Schur-reduced camera solves; returns (problem,
+    chi2 trace (iters+1,))."""
+    NP, NL = ba.poses.shape[0], ba.points.shape[0]
+    dtype, dev = ba.poses.dtype, ba.poses.device
+    free_c = (ba.pose_mask & ~ba.fixed).to(dtype)
+    free_p = ba.point_mask.to(dtype)
+    ci, pi = ba.obs_ij[:, 0], ba.obs_ij[:, 1]
+    ci_seg, pi_seg = ss.SegmentIndex(ci, NP), ss.SegmentIndex(pi, NL)
+    eye3, eye6 = torch.eye(3, dtype=dtype, device=dev), torch.eye(6, dtype=dtype, device=dev)
+
+    def chi2_of(poses, points):
+        return tba._linearize(ba._replace(poses=poses, points=points), False)[4]
+
+    poses, points = ba.poses, ba.points
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
+    trace = [chi2_of(poses, points)]
+    for _ in range(iters):
+        e, Jc, Jp, w, chi2 = tba._linearize(ba._replace(poses=poses, points=points))
+
+        we = torch.einsum("kij,kj->ki", w, e)
+        g_c = ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, we), ci_seg)
+        g_p = ss.segment_sum(torch.einsum("kdi,kd->ki", Jp, we), pi_seg)
+        D_c = ss.segment_sum(_jtwj(Jc, w, Jc), ci_seg)
+        H_pp = ss.segment_sum(_jtwj(Jp, w, Jp), pi_seg)
+        H_pp_d = H_pp + (lam * H_pp * eye3 + 1e-6 * eye3)
+        H_pp_inv = _inv(torch.where(free_p[:, None, None] > 0, H_pp_d, eye3))
+
+        def Hcp_apply(vp, Jc=Jc, Jp=Jp, w=w):  # (NL, 3) -> (NP, 6): sum_obs Jc^T W Jp vp
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jp, vp[pi]))
+            return ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg)
+
+        def Hpc_apply(vc, Jc=Jc, Jp=Jp, w=w):  # (NP, 6) -> (NL, 3)
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, vc[ci]))
+            return ss.segment_sum(torch.einsum("kdi,kd->ki", Jp, WJv), pi_seg)
+
+        # Schur right-hand side: b_s = -g_c + H_cp H_pp^-1 g_p
+        b_s = (-g_c + Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, g_p))) * free_c[:, None]
+        lam_D = lam * D_c * eye6
+
+        def schur_hvp(v, Jc=Jc, w=w, lam_D=lam_D, H_pp_inv=H_pp_inv, Hcp_apply=Hcp_apply, Hpc_apply=Hpc_apply):
+            vc = v[0] * free_c[:, None]
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, vc[ci]))
+            hcc = ss.segment_sum(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg) + torch.einsum("kij,kj->ki", lam_D, vc)
+            out = hcc - Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, Hpc_apply(vc)))
+            return (out * free_c[:, None] + (1.0 - free_c)[:, None] * v[0],)
+
+        D_inv = _inv(torch.where(free_c[:, None, None] > 0, D_c + lam_D + 1e-6 * eye6, eye6))
+
+        def precond(r, D_inv=D_inv):
+            return (torch.einsum("kij,kj->ki", D_inv, r[0]),)
+
+        (dc,), _, _ = pcg(schur_hvp, (b_s,), precond, max_iters=cg_iters, rtol=1e-8)
+        dc = dc * free_c[:, None]
+        # back-substitute the points: dp = H_pp^-1 (-g_p - H_pc dc)
+        dp = torch.einsum("kij,kj->ki", H_pp_inv, -g_p - Hpc_apply(dc)) * free_p[:, None]
+
+        new_poses = _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dc))
+        new_points = points + dp
+        new_chi2 = chi2_of(new_poses, new_points)
+        accept = new_chi2 < chi2
+        poses = torch.where(accept, new_poses, poses)
+        points = torch.where(accept, new_points, points)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+    return ba._replace(poses=poses, points=points), torch.stack(trace)

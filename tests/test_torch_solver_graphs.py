@@ -20,7 +20,9 @@ same masked steps. The JAX package's own solvers are held against the
 port in ``test_torch_se2.py`` and ``test_torch_schur.py``, unchanged. On
 the card (skipped here): ``tools/graph_probe.py``'s solver checks, every
 graphed solve bit-equal to its eager mode, and a capture that fails
-raising.
+raising; the landmark solvers and tracker2d's and line SLAM's per-frame
+stages (``tests/test_torch_landmark_graphs.py``) replayed against their
+eager mode and bodies.
 """
 import contextlib
 
@@ -354,3 +356,20 @@ def test_graphed_solves_equal_their_eager_mode_on_the_card():
 def test_failed_solve_capture_raises_on_the_card():
     probe = _card()
     assert "reads the host" in probe.check_solver_capture_failure(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_landmark_solves_replay_their_eager_mode_on_the_card():
+    """Line SLAM's graph, the plane graph and BA, padded: three graphed
+    calls bit-equal to the eager mode, replay launches as the masked run's
+    (``tests/test_torch_landmark_graphs.py`` holds them on the CPU)."""
+    probe = _card()
+    probe.check_solvers(torch.device("cuda"), cases=probe.landmark_cases(torch.device("cuda")))
+
+
+@pytest.mark.cuda
+def test_per_frame_stages_replay_their_eager_bodies_on_the_card():
+    """tracker2d's and line SLAM's per-frame stages: the capture and a
+    replay bit-equal to the eager body, and to the stage in eager mode."""
+    probe = _card()
+    probe.check_landmark_stages(torch.device("cuda"))

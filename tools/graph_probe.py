@@ -23,7 +23,10 @@ timed against the eager bodies.
 3. The solvers (`--solvers` runs them alone): `check_solvers` on a small
    world and at victoriaPark's counts (Schur with and without the
    Woodbury arrow, `optimize_se2` jacobi and chain, `optimize_se3` jacobi
-   and chain, `optimize_se2_direct`, `landmark_covariance_se2`): three
+   and chain, `optimize_se2_direct`, `landmark_covariance_se2`) and on
+   small padded landmark graphs (`landmark_cases`: line SLAM's graph, the
+   plane graph, BA), and `check_landmark_stages` (tracker2d's and line
+   SLAM's per-frame stages against their eager bodies): three
    graphed calls of each (the key seen once, its capture, a replay)
    bit-equal to its "eager" mode, launches under replay equal to its
    masked steps run eagerly, host reads of both;
@@ -281,11 +284,121 @@ def solver_cases(w, small=True):
     return cases
 
 
+def line_world(n_poses=6, seed=17):
+    """A square room's 4 wall lines seen from a short walk
+    (tests/test_line_slam.py:20's problem): (poses, lines, pose-pose
+    edges, pose-line edges), the poses and lines perturbed."""
+    rng = np.random.default_rng(seed)
+    lines = np.array([[0.0, 4.0], [np.pi / 2, 4.0], [np.pi, 4.0], [-np.pi / 2, 4.0]])
+    poses = [np.zeros(3)]
+    for _ in range(n_poses - 1):
+        poses.append(poses[-1] + np.array([0.4, 0.1, 0.2]))
+    info2, info3 = np.diag([400.0, 100.0]), np.diag([100.0, 100.0, 400.0])
+    pl = []
+    for i, x in enumerate(poses):
+        for l, (alpha, rho) in enumerate(lines):
+            z = np.array([alpha - x[2], rho - np.cos(alpha) * x[0] - np.sin(alpha) * x[1]])
+            pl.append((i, l, z + rng.normal(0, 0.01, 2), info2))
+    pp = []
+    for i in range(n_poses - 1):
+        d, (c, s) = poses[i + 1] - poses[i], (np.cos(poses[i][2]), np.sin(poses[i][2]))
+        pp.append((i, i + 1, np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1], d[2]]), info3))
+    init = np.asarray([poses[0]] + [p + rng.normal(0, 0.08, 3) for p in poses[1:]])
+    return init, lines + rng.normal(0, 0.05, lines.shape), pp, pl
+
+
+def landmark_cases(device):
+    """name -> a call of a landmark solver (line SLAM's graph, the plane
+    graph, BA) on a small padded problem."""
+    import chip_smoke
+    from g2o_frontend_tpu_torch.solvers import ba as tba
+    from g2o_frontend_tpu_torch.solvers import line_slam as tls
+    from g2o_frontend_tpu_torch.solvers import plane_slam as tps
+
+    gl = tls.make_line_graph(*line_world(), device=device)
+    _, _, poses7, planes, pp, pl = chip_smoke.plane_world(n_poses=40, planes=chip_smoke.random_planes(12, 4),
+                                                          per_pose=4, step=0.05, seed=5)
+    gp = tps.make_plane_graph(poses7, planes, pp, pl, device=device)
+    _, _, poses7, points, obs = chip_smoke.ba_world(n_poses=20, n_points=200, per_point=5, seed=3)
+    ba = tba.make_ba_problem(poses7, points, obs, device=device)
+    return {"optimize_line_graph": lambda: tls.optimize_line_graph(gl, iters=8, cg_iters=50),
+            "optimize_plane_graph": lambda: tps.optimize_plane_graph(gp, iters=6, cg_iters=60),
+            "optimize_ba": lambda: tba.optimize_ba(ba, iters=6, cg_iters=40)}
+
+
+def stage_cases(device):
+    """name -> (a call of a per-frame stage of tracker2d and line SLAM, the
+    same call of its eager body) on small inputs on `device`; the
+    association twice, in two buckets of shapes."""
+    from g2o_frontend_tpu_torch.laser import line_extraction as tle
+    from g2o_frontend_tpu_torch.ransac import engine as tengine
+    from g2o_frontend_tpu_torch.ransac import solvers as rsolvers
+    from g2o_frontend_tpu_torch.slam import constellation as tcon
+    from g2o_frontend_tpu_torch.slam import feature_tracker as tft
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    def association(seed, O=13, OC=16, LC=32):
+        rng = np.random.default_rng(seed)
+        obs = rng.uniform(-5, 5, (OC, 2)).astype(np.float32)
+        lms = np.concatenate([obs[:10] + rng.normal(0, 0.2, (10, 2)), rng.uniform(-5, 5, (LC - 10, 2))])
+        S = rng.normal(0, 0.3, (LC, 2, 2))
+        Sinv = np.linalg.inv(S @ S.transpose(0, 2, 1) + 0.05 * np.eye(2)).astype(np.float32)
+        return t(obs), t(np.arange(OC) < O), t(lms.astype(np.float32)), t(rng.random(LC) < 0.8), t(Sinv)
+
+    o, om, l, lm, Si = association(0)
+    o2, om2, l2, lm2, _ = association(1, O=20, OC=32, LC=64)
+    rng = np.random.default_rng(2)
+    src = rng.uniform(-5, 5, (16, 2)).astype(np.float32)
+    c, s = np.cos(0.4), np.sin(0.4)
+    tgt = (src @ np.array([[c, -s], [s, c]], np.float32).T + np.array([0.3, -0.2], np.float32)).astype(np.float32)
+    tgt[:3] += 2.0  # 3 outliers among the 11 valid pairs
+    mask = np.arange(16) < 11
+    sets = tengine._sample_minimal_sets(torch.Generator().manual_seed(2), 128, 2, torch.as_tensor(mask)).to(device)
+    ransac = (t(tgt), t(src), t(mask), sets, rsolvers.fit_se2_points, rsolvers.err_se2_points, 0.25, 2)
+    T = t(np.random.default_rng(3).uniform(-1, 1, (64, 3)).astype(np.float32))
+    angles = np.linspace(-np.pi, np.pi, 360, endpoint=False).astype(np.float32)
+    ranges = (4.0 / np.maximum(np.abs(np.cos(angles)), np.abs(np.sin(angles)))).astype(np.float32)  # a square room
+    r, a = t(ranges), t(angles)
+    return {
+        "associate_nn": (lambda: tft._associate_nn(o, om, l, lm, 1.0),
+                         lambda: tft._associate_nn_body(o, om, l, lm, 1.0)),
+        "associate_nn, another bucket": (lambda: tft._associate_nn(o2, om2, l2, lm2, 1.0),
+                                         lambda: tft._associate_nn_body(o2, om2, l2, lm2, 1.0)),
+        "associate_nn_mahal": (lambda: tft._associate_nn_mahal(o, om, l, lm, Si, 9.21, 10.0),
+                               lambda: tft._associate_nn_mahal_body(o, om, l, lm, Si, 9.21, 10.0)),
+        "ransac": (lambda: tengine.ransac(None, *ransac[:3], fit_fn=ransac[4], err_fn=ransac[5], minimal_size=2,
+                                          inlier_threshold=0.25, n_hypotheses=128, min_inliers=2, minimal_sets=sets),
+                   lambda: tengine._ransac(*ransac)),
+        "score_hypotheses": (lambda: tcon._score_hypotheses(T, o[:8], om[:8], l[:16], lm[:16], 0.25),
+                             lambda: tcon._score_hypotheses_body(T, o[:8], om[:8], l[:16], lm[:16], 0.25)),
+        "extract_lines": (lambda: tle.extract_lines(r, a), lambda: tle._extract_lines(r, a, tle.LineExtractorConfig())),
+    }
+
+
+def check_landmark_stages(device):
+    """Each per-frame stage's first three calls (its capture, at the first
+    call or, for the RANSAC, the second, then replays) bit-equal to its
+    eager body, and to the stage in "eager" mode. Returns the names
+    checked."""
+    cases = stage_cases(device)
+    for name, (stage, body) in cases.items():
+        want = leaves(body())
+        for i, got in enumerate((stage(), stage(), stage())):
+            check(same_bits(leaves(got), want), f"{name}: graphed call {i + 1} differs from its eager body")
+        with graphs.mode("eager"):
+            check(same_bits(leaves(stage()), want), f"{name}: the eager mode differs from its eager body")
+    return list(cases)
+
+
 def solver_leaves(out):
     """The tensors and counts of a solver's result, for `same_bits`."""
     if torch.is_tensor(out):
         return [out]
     gk, st = out
+    if torch.is_tensor(st):  # a landmark solver's (graph, chi2 trace)
+        return [t for t in gk if torch.is_tensor(t)] + [st]
     rest = [gk.landmarks] if hasattr(gk, "landmarks") else []
     counts = [torch.tensor([v]) for v in st if isinstance(v, int)]
     return [gk.poses] + rest + [t for t in st if torch.is_tensor(t)] + counts
@@ -481,6 +594,13 @@ def main():
         print(json.dumps({"solver checks": "small" if small else "victoriaPark's counts", "launches and host reads "
                           "(graph launches, eager launches, graph reads, eager reads)": got, "errors": errors}),
               flush=True)
+    got = check_solvers(device, errors=errors, cases=landmark_cases(device))
+    print(json.dumps({"solver checks": "landmark graphs", "launches and host reads": got, "errors": errors}),
+          flush=True)
+    try:
+        print(json.dumps({"stage checks": check_landmark_stages(device)}), flush=True)
+    except (CheckFailure, RuntimeError) as exc:
+        errors.append(f"check_landmark_stages: {type(exc).__name__}: {exc}")
     print(json.dumps({"solver capture_failure": check_solver_capture_failure(device)}), flush=True)
     if not args.no_timing:
         for row in block_sweep(device):
