@@ -1447,7 +1447,8 @@ def graphed_solve(label, fn, one_iteration, lm_of, cg_of=None, launches=None, ke
              + ", ".join(f"{c.stage.split(': ')[-1]} {c.capture_ms:.1f} ms, pool +{c.pool_bytes} B" for c in kept)
              + f"), {len(caps) - len(kept)} CG-block graphs dropped at their solve's end ("
              f"{sum(c.capture_ms for c in caps if not c.kept):.1f} ms)"]
-    return out, lines, dict(graph_ms=min(g1, g2), eager_ms=min(e1, e2))
+    return out, lines, dict(graph_ms=min(g1, g2), eager_ms=min(e1, e2), reads_graph=reads[3], reads_eager=reads[2],
+                            capture_ms=capture_ms, pool_bytes=sum(c.pool_bytes for c in kept))
 
 
 class SolverCalls:
@@ -2339,11 +2340,58 @@ def lines_band(card, ate, cpu, ate_cpu):
         check(ok, f"the card's line SLAM is outside its band around {name} run")
 
 
+def grid_turns(device, world, first, first_calls, first_chi2, since):
+    """Grid SLAM over `world` again, in turns (eager, graph, graph, eager):
+    "eager" runs every stage and solve as its eager body, "graph" replays
+    the matching, map and solve graphs that `first` (the phase's first
+    run, its matches `first_calls`) captured. Every run bit-equal to the
+    first in poses, edges, chi2 and each match's pose, score and scores a
+    rotation; scans/s of each; the stage keys captured and their pool."""
+    import numpy as np
+
+    from g2o_frontend_tpu_torch import models
+    from g2o_frontend_tpu_torch.laser import matcher_refine as mr
+    from g2o_frontend_tpu_torch.laser import scan_matcher as sm
+    from g2o_frontend_tpu_torch.slam import grid_slam as gs
+    from g2o_frontend_tpu_torch.utils import graphs
+
+    def run(mode):
+        drv = models.build("grid_slam", device=device, **GRID_SLAM)
+        with graphs.mode(mode), Recorder(gs, "correlative_match_multires", keep=True) as rec:
+            secs = drive_scans(drv, world)
+            chi2 = drv.optimize(iters=10, cg_iters=100)
+        return drv, secs, chi2, [out for _, _, out in rec.calls]
+
+    want = [out for _, _, out in first_calls]
+    rates, same = {"graph": [], "eager": []}, True
+    for mode in ("eager", "graph", "graph", "eager"):
+        drv, secs, chi2, outs = run(mode)
+        rates[mode].append(len(world["scans"]) / secs)
+        same = (same and chi2 == first_chi2 and np.array_equal(np.asarray(drv.poses), np.asarray(first.poses))
+                and len(drv.edges) == len(first.edges) and len(outs) == len(want)
+                and all((i, j) == (i2, j2) and np.array_equal(z, z2) for (i, j, z, _), (i2, j2, z2, _) in
+                        zip(drv.edges, first.edges))
+                and all(same_bits(*zip(a, b)) for a, b in zip(outs, want)))
+    caps = [c for c in graphs.captures()[since:] if c.stage in ("correlative_match_multires", "build_likelihood_map",
+                                                                 "gradient_refine", "correlative_match")]
+    keys = {st.name: len(st._graphs) for st in (sm._MULTIRES, sm._LIKELIHOOD, mr._REFINE) if st._graphs}
+    g, e = max(rates["graph"]), max(rates["eager"])
+    say("slice5", f"(a) grid SLAM in turns (eager, graph, graph, eager), {len(world['scans'])} scans and the solve: "
+        f"graph {g:.2f} scans/s ({', '.join(f'{r:.2f}' for r in rates['graph'])}), eager {e:.2f} scans/s "
+        f"({', '.join(f'{r:.2f}' for r in rates['eager'])}), {g / e:.2f}x; every run bit-equal to the first in "
+        f"poses, edges, chi2 and its {len(want)} matches' poses and scores: {same}; stage keys {keys}, captured in "
+        f"{sum(c.capture_ms for c in caps):.1f} ms, pool "
+        f"+{sum(c.pool_bytes for c in caps)} B, static inputs {sum(c.input_bytes for c in caps)} B")
+    check(same, "grid SLAM graphed differs from its eager mode")
+    return dict(graph=g, eager=e)
+
+
 def phase_slice5(ctx, out_dir):
     """Phase 14: slice 5 (no kernel) at full size. (a) Grid SLAM over a
     simulated laser world at graphSE2.g2o's 452 scans (800x800 grids at
     0.05 m), every correlative match of the card recorded and rerun on the
-    CPU, the same scans through the port on the CPU (in the worker, since
+    CPU, the run repeated graphed and eager in turns, bit for bit
+    (`grid_turns`), the same scans through the port on the CPU (in the worker, since
     phase 12), the JAX package's ground-truth fixture (its ATE gate), 20
     scans under torch.profiler; (b) line SLAM over the same scans, and on
     the CPU in the worker; (c)
@@ -2375,6 +2423,7 @@ def phase_slice5(ctx, out_dir):
     odo = odometry_path(gt[0], world["odom_deltas"])
     n = len(world["scans"])
     slam = models.build("grid_slam", device=device, **GRID_SLAM)
+    since = len(graphs.captures())
     with Recorder(gs, "correlative_match_multires", keep=True) as matches, Recorder(gs, "build_likelihood_map") as maps:
         track_s = drive_scans(slam, world)
         chi2, opt_s = host_s(lambda: slam.optimize(iters=10, cg_iters=100))
@@ -2415,6 +2464,7 @@ def phase_slice5(ctx, out_dir):
         f"({f_ate / f_odo:.3f}x)")
     check(f_ate < 0.75 * f_odo and f_ate < 0.35, f"grid SLAM ATE {f_ate:.4f} m on the fixture is not below 0.75x the "
           f"odometry's {f_odo:.4f} m and 0.35 m")
+    ctx["grid_scans_s"] = grid_turns(device, world, slam, matches.calls, chi2, since)
     warm = models.build("grid_slam", device=device, **GRID_SLAM)
     drive_scans(warm, world, range(40))
     _, wall, dev, ops, syncs = profile_frames(lambda: drive_scans(warm, world, range(40, 60)))
@@ -2786,19 +2836,43 @@ def ops_per_cg(solve):
     return (count_ops(lambda: solve(4))[1] - count_ops(lambda: solve(2))[1]) / 2
 
 
-def repeat_prefix(name, trace, repeat):
-    """A second card run of a solve, cut to its first LM iterations: its
-    trace bit-equal to the first run's prefix (an LM trace's first k
-    entries do not depend on the iterations after them)."""
-    same = same_bits((trace[:len(repeat)], repeat))
-    say("parallel", f"  {name} again on the card for {len(repeat) - 1} LM iterations: trace bit-equal to the first "
-        f"run's {same}")
-    check(same, f"two card runs of {name} differ")
+def parallel_solve(label, fn, one_iteration, lm_of, stops=False):
+    """A distributed solve through `graphed_solve` (graphed four times, the
+    chain captured at the second; eager once; all bit-equal; graph against
+    eager by CUDA events), its host reads held to one a CG block and one an
+    LM iteration (the eager run's reads give its CG iterations: one a step,
+    one more a solve's CG loop, and the reports), its eager operations a CG
+    iteration (`ops_per_cg`); the lines printed. Returns (the result, the
+    timing row). `lm_of` gives a result's LM iterations."""
+    from g2o_frontend_tpu_torch.solvers import pcg
+    from g2o_frontend_tpu_torch.utils import graphs
+
+    last = []
+
+    def solve():
+        last[:] = [fn()]
+        return last[0]
+
+    out, lines, row = graphed_solve(label, solve, one_iteration, lambda _: lm_of(last[0]), eager_turns=1)
+    lm = lm_of(out)
+    reports = lm if stops else 1
+    cg_total = row["reads_eager"] - lm - reports
+    bound = cg_total / pcg.BLOCK + lm + reports
+    with graphs.mode("eager"):
+        per_cg = ops_per_cg(lambda c: one_iteration(cg_iters=c))
+    for line in lines:
+        say("parallel", line)
+    say("parallel", f"{label}: {cg_total} CG iterations; host reads graphed {row['reads_graph']} (limit one a CG "
+        f"block of {pcg.BLOCK} and one an LM iteration: {bound:.1f}); {per_cg:.0f} operations a CG iteration eager")
+    check(row["reads_graph"] <= bound, f"{label}: {row['reads_graph']} host reads, more than {bound:.1f}")
+    return out, row
 
 
 def phase_parallel(ctx, out_dir):
     """Phase 15: slice 6, the distributed solvers, on StackedMesh(8) on the
-    card, each step also on a StackedMesh(8) on the CPU. (a) Halo exchange
+    card, each step also on a StackedMesh(8) on the CPU; each solve of
+    (b)-(d) graphed against its eager mode, bit for bit and in turns
+    (`parallel_solve`). (a) Halo exchange
     and SPIKE at test size against dense oracles; (b) the partitioned SE2
     solvers (jacobi, chain) and the distributed Schur solver on phase 12's
     world (21,662 DOF), the Schur one within 1.01x the float64 control;
@@ -2875,62 +2949,54 @@ def phase_parallel(ctx, out_dir):
     vic = ctx["victoria"]
     g, gc, ctl = vic["g"], vic["gc"], vic["ctl"]
     comm = None
+    rows = ctx.setdefault("parallel_ms", {})
     for precond in ("jacobi", "chain"):
         caps = dict(precond=precond, **PART_CAPS)
-        (tr, st), line = solve_line(
-            f"(b) optimize_se2_partitioned D={MESH_D} {caps}", lambda: optimize_se2_partitioned(g, card, **caps)[1:],
-            lambda: optimize_se2_partitioned(g, card, **{**caps, "iters": 1}), lambda out: caps["iters"],
-            lambda out: out["cg_total"])
+        label = f"(b) optimize_se2_partitioned D={MESH_D} {caps}"
+        (_, tr, st), rows[label] = parallel_solve(
+            label, lambda: optimize_se2_partitioned(g, card, **caps),
+            lambda **kw: optimize_se2_partitioned(g, card, **{**caps, "iters": 1, **kw}), lambda out: caps["iters"])
         comm = st["comm"]
         ref = pg.optimize_se2(g, precond=precond, **PART_CAPS)[1].chi2
         _, tr_cpu, _ = optimize_se2_partitioned(gc, host, **{**caps, "iters": CPU_LM})
-        repeat_prefix(f"optimize_se2_partitioned ({precond})", tr,
-                      optimize_se2_partitioned(g, card, **{**caps, "iters": CPU_LM})[1])
         ok_cpu, rel_cpu = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
         ok_one, rel_one = trace_close(tr, ref, 1e-3 if precond == "jacobi" else float("inf"))
-        per_cg = ops_per_cg(lambda c: optimize_se2_partitioned(g, card, **{**caps, "iters": 1, "cg_iters": c}))
-        say("parallel", line + f"; chi2 {float(tr[-1]):.4f} ({float(tr[-1]) / ctl['chi2']:.4f}x the control, not "
-            f"gated); single-device optimize_se2 ({precond}) {float(ref[-1]):.4f}, traces within {rel_one:.2e}"
+        say("parallel", f"{label}: CG iterations {st['cg_total']}; chi2 {float(tr[-1]):.4f} "
+            f"({float(tr[-1]) / ctl['chi2']:.4f}x the control, not gated); single-device optimize_se2 ({precond}) "
+            f"{float(ref[-1]):.4f}, traces within {rel_one:.2e}"
             f"{' (limit 1e-3)' if precond == 'jacobi' else ' (a global chain: not gated)'}; first {CPU_LM} LM "
-            f"iterations on the CPU within {rel_cpu:.2e} (limit 1e-3); {per_cg:.0f} operations a CG iteration")
+            f"iterations on the CPU within {rel_cpu:.2e} (limit 1e-3)")
         check(ok_cpu and (ok_one or precond == "chain"), f"partitioned {precond} traces disagree")
     say("parallel", f"(b) comm_volume: {comm['bytes_per_matvec']} B and {comm['collectives_per_matvec']} collectives a "
         f"matvec, {comm['bytes_per_lm_iter']} B an LM iteration; halo {comm['halo_mode']} shifts {comm['halo_shifts']}"
         f" ({comm['halo_slots']} slots), landmarks {comm['halo_lm_mode']} ({comm['halo_lm_slots']} slots)")
-    (tr, st), line = solve_line(
-        f"(b) optimize_se2_schur_partitioned D={MESH_D} {SCHUR_PART_CAPS}",
-        lambda: optimize_se2_schur_partitioned(g, card, **SCHUR_PART_CAPS)[1:],
-        lambda: optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": 1}),
-        lambda out: out["lm_iters"], lambda out: out["cg_total"])
+    label = f"(b) optimize_se2_schur_partitioned D={MESH_D} {SCHUR_PART_CAPS}"
+    (_, tr, st), rows[label] = parallel_solve(
+        label, lambda: optimize_se2_schur_partitioned(g, card, **SCHUR_PART_CAPS),
+        lambda **kw: optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": 1, **kw}),
+        lambda out: out[2]["lm_iters"], stops=True)
     ratio = float(tr[-1]) / ctl["chi2"]
     _, tr_cpu, _ = optimize_se2_schur_partitioned(gc, host, **{**SCHUR_PART_CAPS, "iters": CPU_LM})
-    repeat_prefix("optimize_se2_schur_partitioned", tr,
-                  optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": CPU_LM})[1])
     ok, rel = trace_close(tr[:CPU_LM + 1], tr_cpu[:CPU_LM + 1], 1e-3)
-    per_cg = ops_per_cg(lambda c: optimize_se2_schur_partitioned(g, card, **{**SCHUR_PART_CAPS, "iters": 1,
-                                                                          "cg_iters": c}))
-    say("parallel", line + f"; chi2 {float(tr[-1]):.6f}, {ratio:.6f}x the control (limit 1.01); first {CPU_LM} LM "
-        f"iterations on the CPU within {rel:.2e} (limit 1e-3); {per_cg:.0f} operations a CG iteration; "
-        f"{st['replicated_psum_floats_per_cg_iter']} replicated psum floats a CG iteration, "
+    say("parallel", f"{label}: LM iterations {st['lm_iters']}, CG iterations {st['cg_total']}; chi2 "
+        f"{float(tr[-1]):.6f}, {ratio:.6f}x the control (limit 1.01); first {CPU_LM} LM iterations on the CPU within "
+        f"{rel:.2e} (limit 1e-3); {st['replicated_psum_floats_per_cg_iter']} replicated psum floats a CG iteration, "
         f"{st['replicated_psum_floats_per_lm_iter']} an LM iteration")
     check(ratio <= 1.01 and ok, f"distributed Schur reached {ratio:.6f}x the control, CPU within {rel:.2e}")
 
     # (c) SE3 SPIKE on bench.py's 300-pose world
     g3, ctl3 = ctx["se3"][300]
     g3c = g3.to("cpu")
-    (_, tr), line = solve_line(f"(c) optimize_se3_partitioned D={MESH_D} {SE3_SPIKE_CAPS}",
-                               lambda: optimize_se3_partitioned(g3, card, **SE3_SPIKE_CAPS),
-                               lambda: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1}),
-                               lambda out: SE3_SPIKE_CAPS["iters"])
+    label = f"(c) optimize_se3_partitioned D={MESH_D} {SE3_SPIKE_CAPS}"
+    (_, tr), rows[label] = parallel_solve(
+        label, lambda: optimize_se3_partitioned(g3, card, **SE3_SPIKE_CAPS),
+        lambda **kw: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1, **kw}),
+        lambda out: SE3_SPIKE_CAPS["iters"])
     ratio = float(tr[-1]) / ctl3["chi2"]
     _, tr_cpu = optimize_se3_partitioned(g3c, host, **{**SE3_SPIKE_CAPS, "iters": CPU_LM})
-    repeat_prefix("optimize_se3_partitioned (spike)", tr,
-                  optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": CPU_LM})[1])
     ok, rel = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
-    per_cg = ops_per_cg(lambda c: optimize_se3_partitioned(g3, card, **{**SE3_SPIKE_CAPS, "iters": 1, "cg_iters": c}))
-    say("parallel", line + f"; chi2 {float(tr[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x (limit 1.01); "
-        f"first {CPU_LM} LM iterations on the CPU within {rel:.2e} (limit 1e-3); {per_cg:.0f} operations a CG "
-        "iteration")
+    say("parallel", f"{label}: chi2 {float(tr[-1]):.4f}, control {ctl3['chi2']:.4f}, {ratio:.6f}x (limit 1.01); "
+        f"first {CPU_LM} LM iterations on the CPU within {rel:.2e} (limit 1e-3)")
     check(np.isfinite(ratio) and ratio <= 1.01 and ok, f"SE3 SPIKE reached {ratio:.6f}x its control")
 
     # (d) the edge-sharded solvers against the single-device ones
@@ -2946,17 +3012,16 @@ def phase_parallel(ctx, out_dir):
     }
     se2_sharded = None
     for name, (solve, prob, prob_c, caps, single) in sharded.items():
-        (_, tr), line = solve_line(f"(d) {solve.__name__} D={MESH_D} {caps}", lambda: solve(prob, card, **caps),
-                                   lambda: solve(prob, card, **{**caps, "iters": 1}), lambda out: caps["iters"])
+        label = f"(d) {solve.__name__} D={MESH_D} {caps}"
+        (_, tr), rows[label] = parallel_solve(label, lambda: solve(prob, card, **caps),
+                                              lambda **kw: solve(prob, card, **{**caps, "iters": 1, **kw}),
+                                              lambda out: caps["iters"])
         ok_one, rel_one = trace_close(tr, single(), 1e-3)
         _, tr_cpu = solve(prob_c, host, **{**caps, "iters": CPU_LM})
-        repeat_prefix(solve.__name__, tr, solve(prob, card, **{**caps, "iters": CPU_LM})[1])
         ok_cpu, rel_cpu = trace_close(tr[:CPU_LM + 1], tr_cpu, 1e-3)
         se2_sharded = tr if name == "se2" else se2_sharded
-        per_cg = ops_per_cg(lambda c: solve(prob, card, **{**caps, "iters": 1, "cg_iters": c}))
-        say("parallel", line + f"; chi2 {float(tr[0]):.4f} -> {float(tr[-1]):.4f}; the single-device solver's trace "
-            f"within {rel_one:.2e}, the first {CPU_LM} LM iterations on the CPU within {rel_cpu:.2e} (limits 1e-3); "
-            f"{per_cg:.0f} operations a CG iteration")
+        say("parallel", f"{label}: chi2 {float(tr[0]):.4f} -> {float(tr[-1]):.4f}; the single-device solver's trace "
+            f"within {rel_one:.2e}, the first {CPU_LM} LM iterations on the CPU within {rel_cpu:.2e} (limits 1e-3)")
         check(ok_one and ok_cpu and float(tr[-1]) < float(tr[0]), f"{solve.__name__} disagrees")
 
     # (e) ProcessMesh over NCCL at world size 1 against StackedMesh(1)
@@ -3001,6 +3066,10 @@ def phase_parallel(ctx, out_dir):
         "(limit: equal, the same code on the same card)")
     check(out["chi2_final"] == float(se2_sharded[-1]) and abs(out["chi2_initial"] / float(se2_sharded[0]) - 1) <= 1e-5,
           "graph_optimizer --devices disagrees with optimize_se2_sharded")
+    say("parallel", "graphed against eager, whole solves: " + "; ".join(
+        f"{k} {r['graph_ms']:.3f} / {r['eager_ms']:.3f} ms ({r['eager_ms'] / r['graph_ms']:.2f}x), "
+        f"reads {r['reads_graph']} / {r['reads_eager']}, the chain's capture call {r['capture_ms']:.1f} ms, pool "
+        f"+{r['pool_bytes']} B" for k, r in rows.items()))
     say("parallel", f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
 
@@ -3226,7 +3295,10 @@ def run(out_dir):
     say("graphs", f"bench {json.dumps(ctx['bench'])}; tracker frames/s {json.dumps(ctx['tracker_fps'])}; stress run "
         f"frames/s (no cache, cache) {ctx['stress_fps']}; {ctx['captures']} keys captured")
     say("graphs", f"tracker2d frames/s (graph, eager) {json.dumps(ctx['tracker2d_fps'])}; line SLAM scans/s "
-        f"{json.dumps(ctx['line_scans_s'])}")
+        f"{json.dumps(ctx['line_scans_s'])}; grid SLAM scans/s {json.dumps(ctx['grid_scans_s'])}")
+    say("graphs", "distributed solves on StackedMesh(8), graph against eager (ms): " + "; ".join(
+        f"{k[4:]} {v['graph_ms']:.3f} vs {v['eager_ms']:.3f} ({v['eager_ms'] / v['graph_ms']:.2f}x)"
+        for k, v in ctx["parallel_ms"].items()))
     say("graphs", "solves at victoriaPark's counts and the landmark solves, graph against eager (ms): " + "; ".join(
         f"{k} {v['graph_ms']:.3f} vs {v['eager_ms']:.3f} ({v['eager_ms'] / v['graph_ms']:.2f}x)"
         for k, v in ctx["solve_ms"].items()) + "; the callers' solves, graphed against their eager reruns (ms): "

@@ -7,11 +7,19 @@
   bilinearly interpolated likelihood score, the gradient taken by
   `torch.func.grad_and_value` through the interpolation, a fixed number of
   normalized steps that never read the device from the host.
+
+The JAX package jits `gradient_refine` (its steps a ``fori_loop``, the
+step count static). Here it is a `utils.graphs.Stage` over
+`_gradient_refine`, captured at a key's second call
+(``second_call=True``): its callers pass unpadded scans, so a point count
+seen once captures nothing. Padding the scan would change the order of
+the mean's sum, and so its bits.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import graphs
 from .scan_matcher import GridSpec, correlative_match
 
 
@@ -48,14 +56,23 @@ def gradient_refine(likelihood_map, scan_points, scan_valid, spec: GridSpec, pos
     Each step moves by lr * scale * g / max(|g * scale|, 1e-9), scale being
     (resolution, resolution, resolution / 4): meters for x and y, radians
     for theta."""
+    return _REFINE(likelihood_map, scan_points, scan_valid, spec, pose0.to(likelihood_map.dtype), int(steps),
+                   float(lr))
+
+
+def _gradient_refine(likelihood_map, scan_points, scan_valid, spec: GridSpec, pose, steps, lr):
     grad_and_value = torch.func.grad_and_value(
         lambda p: score_pose(likelihood_map, scan_points, scan_valid, spec, p))
-    scale = likelihood_map.new_tensor([spec.resolution, spec.resolution, 0.25 * spec.resolution])
-    pose = pose0.to(likelihood_map.dtype)
+    # made on the device: a tensor built from a host list is a host copy, which a capture refuses
+    scale = torch.stack([torch.full((), r, dtype=likelihood_map.dtype, device=likelihood_map.device)
+                         for r in (spec.resolution, spec.resolution, 0.25 * spec.resolution)])
     for _ in range(steps):
         g, _ = grad_and_value(pose)
         pose = pose + lr * scale * g / torch.clamp_min(torch.linalg.vector_norm(g * scale), 1e-9)
     return pose, score_pose(likelihood_map, scan_points, scan_valid, spec, pose)
+
+
+_REFINE = graphs.Stage("gradient_refine", _gradient_refine, second_call=True)
 
 
 def _pool2(m):

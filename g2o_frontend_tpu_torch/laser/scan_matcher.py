@@ -13,6 +13,16 @@
 Everything runs on the device of the map and stays there: the results are
 0-dim and 1-dim tensors, read by the caller where it needs them.
 
+The JAX package jits `build_likelihood_map`, `correlative_match` and
+`correlative_match_multires` with their grid, search radius and coarse
+factor static. Here each is a `utils.graphs.Stage` over its private eager
+body (`_build_likelihood_map`, `_correlative_match`,
+`_correlative_match_multires`) with the same arguments static: on the card
+a key (those statics and the shapes: the point caps of the callers'
+power-of-two buckets) is captured once into a CUDA graph and replayed. The
+FFT plans and their work areas are made by the stage's warm-up, before the
+capture.
+
 Where the card and the CPU must agree exactly, the arithmetic is fixed:
 grid coordinates divide by a 0-dim tensor (CUDA divides by a Python scalar
 through its reciprocal), the blur is a fixed sequence of float32 products
@@ -30,6 +40,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from ..utils import graphs
 
 
 @dataclass(frozen=True)
@@ -111,6 +123,10 @@ def build_likelihood_map(points, valid, spec: GridSpec, sigma_cells: float = 1.0
     points: (N, 2) map-frame points; valid: (N,) bool. Returns (H, W) on
     the points' device.
     """
+    return _LIKELIHOOD(points, valid, spec, float(sigma_cells))
+
+
+def _build_likelihood_map(points, valid, spec: GridSpec, sigma_cells: float):
     taps = _gaussian_taps(sigma_cells)
     m = _blur_axis(_hit_images(points, valid, spec), taps, 0)
     return torch.clamp_max(_blur_axis(m, taps, 1), 1.0)
@@ -152,9 +168,13 @@ def correlative_match(likelihood_map, scan_points, scan_valid, spec: GridSpec, t
     Returns MatchResult with the best [x, y, theta]; the first maximum wins
     among equal scores.
     """
+    return _MATCH(likelihood_map, scan_points, scan_valid, spec, thetas.to(likelihood_map.dtype),
+                  int(search_radius_cells), _prior(translation_prior, likelihood_map))
+
+
+def _correlative_match(likelihood_map, scan_points, scan_valid, spec: GridSpec, thetas, search_radius_cells,
+                       prior) -> MatchResult:
     H, W = spec.rows, spec.cols
-    prior = _prior(translation_prior, likelihood_map)
-    thetas = thetas.to(likelihood_map.dtype)
     Fmap = torch.fft.rfft2(likelihood_map)
     img = _hit_images(_rotate(scan_points, thetas, prior), scan_valid, spec)  # (K, H, W)
     # circular cross-correlation: corr[dy, dx] = sum img[y, x] map[y+dy, x+dx]
@@ -229,12 +249,16 @@ def correlative_match_multires(likelihood_map, scan_points, scan_valid, spec: Gr
     in a window of half-width 2f+1 cells around the coarse translation, for
     every rotation. Returns the same MatchResult; the first maximum wins.
     """
+    return _MULTIRES(likelihood_map, scan_points, scan_valid, spec, thetas.to(likelihood_map.dtype),
+                     int(search_radius_cells), _prior(translation_prior, likelihood_map), int(coarse_factor))
+
+
+def _correlative_match_multires(likelihood_map, scan_points, scan_valid, spec: GridSpec, thetas, search_radius_cells,
+                                prior, coarse_factor) -> MatchResult:
     f = coarse_factor
-    prior = _prior(translation_prior, likelihood_map)
-    thetas = thetas.to(likelihood_map.dtype)
     coarse_map, coarse_spec = coarse_grid(likelihood_map, spec, f)
-    coarse = correlative_match(coarse_map, scan_points, scan_valid, coarse_spec, thetas,
-                               search_radius_cells=max(1, -(-search_radius_cells // f)), translation_prior=prior)
+    coarse = _correlative_match(coarse_map, scan_points, scan_valid, coarse_spec, thetas,
+                                max(1, -(-search_radius_cells // f)), prior)
     # half-width 2f+1: the max-pool peak localizes to one coarse cell, but
     # the true fine peak can sit in a neighbouring coarse cell when the
     # pooled maxima tie: cover a full coarse cell on each side
@@ -250,3 +274,8 @@ def correlative_match_multires(likelihood_map, scan_points, scan_valid, spec: Gr
     pose = torch.stack([base[0] + (ix - w) * res, base[1] + (iy - w) * res, _at(thetas, k_best)])
     scores_theta = scores_theta.to(likelihood_map.dtype)
     return MatchResult(pose, _at(scores_theta, k_best), scores_theta)
+
+
+_LIKELIHOOD = graphs.Stage("build_likelihood_map", _build_likelihood_map)
+_MATCH = graphs.Stage("correlative_match", _correlative_match)
+_MULTIRES = graphs.Stage("correlative_match_multires", _correlative_match_multires)

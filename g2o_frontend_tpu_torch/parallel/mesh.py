@@ -19,6 +19,14 @@ in two forms:
   ``psum`` is ``all_reduce``, ``ppermute`` a send/receive pair, and
   ``all_to_all`` is ``all_to_all_single``.
 
+The solvers' LM loops run through `utils.graphs.solve_loop` on either
+form, and the mesh is a static argument of their graphs' key: two
+`StackedMesh`es of one size on one device are equal, a `ProcessMesh` is
+itself (a key holds its communicator). NCCL's collectives are captured in
+the graphs like any kernel (a `ProcessMesh` at world size 1,
+``tools/graph_probe.py --parallel``); over gloo the tensors lie on the
+CPU, where the pieces run eagerly.
+
 Replicated results have the same (1, ...) shape in both forms. `local`
 takes a host array whose leading axis is the shard and returns the rows
 this program holds; `gather` goes the other way; `flat_index` turns the
@@ -36,18 +44,15 @@ EDGE_AXIS = "shard"
 
 class _Mesh:
     size: int  # D, the shards of the mesh
+    shards: int  # S, the shards this program holds
     device: torch.device
-
-    def __init__(self):
-        self._offsets = {}
 
     def flat_index(self, idx: torch.Tensor, n: int) -> torch.Tensor:
         """(S, ...) int64 row indices into each shard's n rows -> one vector
         of rows of the flattened (S * n, ...) block: shard s's are offset by
         s * n."""
-        if n not in self._offsets:
-            self._offsets[n] = torch.arange(self.shards, device=self.device) * n
-        return (idx + self._offsets[n].view((-1,) + (1,) * (idx.ndim - 1))).reshape(-1)
+        offsets = torch.arange(self.shards, device=self.device) * n
+        return (idx + offsets.view((-1,) + (1,) * (idx.ndim - 1))).reshape(-1)
 
     def local(self, x, dtype=None) -> torch.Tensor:
         """A (D, ...) array or tensor -> this program's rows of it on the
@@ -60,11 +65,18 @@ class StackedMesh(_Mesh):
     """All `n` shards in one process: sharded tensors lead with an axis of n."""
 
     def __init__(self, n: int, device="cuda"):
-        super().__init__()
         if n < 1:
             raise ValueError(f"a mesh needs at least one shard, got {n}")
         self.size = self.shards = n
         self.device = torch.device(device)
+
+    # a static argument of the solvers' graphs (`utils.graphs`): two meshes of
+    # one size on one device run the same program
+    def __eq__(self, other):
+        return type(other) is StackedMesh and (other.size, other.device) == (self.size, self.device)
+
+    def __hash__(self):
+        return hash((StackedMesh, self.size, self.device))
 
     def _rows(self, x):
         return x
@@ -94,7 +106,6 @@ class ProcessMesh(_Mesh):
     ranks on the CPU."""
 
     def __init__(self, device="cuda"):
-        super().__init__()
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh needs an initialised torch.distributed process group")
         self.size, self.rank, self.shards = dist.get_world_size(), dist.get_rank(), 1
@@ -104,7 +115,8 @@ class ProcessMesh(_Mesh):
         return x[self.rank:self.rank + 1]
 
     def index(self) -> torch.Tensor:
-        return torch.tensor([self.rank], device=self.device)
+        # filled on the device: a tensor made from a host list is a host copy, which a CUDA graph capture refuses
+        return torch.full((1,), self.rank, dtype=torch.int64, device=self.device)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         y = x.sum(0, keepdim=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import types
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -36,9 +37,9 @@ import torch
 from ..graph.store import PoseGraph2D, PoseGraph3D
 from ..ops import segment_sum as ss
 from ..solvers import pose_graph as pg
-from ..solvers.pcg import pcg
+from ..solvers.pcg import cg_carry, cg_loop
 from ..solvers.tridiag import cr_factor, cr_solve
-from ..utils import lie
+from ..utils import graphs, lie
 from .halo import (HaloSpec, build_halo_spec, halo_bytes_per_exchange, halo_collectives_per_exchange, halo_gather,
                    halo_reduce)
 from .mesh import offset_pairs
@@ -334,11 +335,38 @@ def comm_volume(p: PartitionedSE2, lm_iters: int, cg_matvecs: int) -> dict:
     }
 
 
-class _Halo:
+class _Node:
+    """A node of `utils.graphs`' argument trees: the attributes named in
+    `_children` (tensors and trees of them) are its children, those in
+    `_static` (hashable: the mesh, sizes, a schedule's shape) its
+    structure, so that a solve's graphs read its tensors from their static
+    buffers. A rebuilt node has only these attributes."""
+
+    _children: tuple = ()
+    _static: tuple = ()
+
+    def __tree_flatten__(self):
+        return tuple(getattr(self, a) for a in self._static), tuple(getattr(self, a) for a in self._children)
+
+    @classmethod
+    def __tree_unflatten__(cls, aux, children):
+        node = cls.__new__(cls)
+        for a, v in zip(cls._static, aux):
+            setattr(node, a, v)
+        for a, v in zip(cls._children, children):
+            setattr(node, a, v)
+        return node
+
+
+class _Halo(_Node):
     """One exchange schedule on the mesh, for blocks of `n` own slots."""
 
+    _children = ("send", "recv")
+    _static = ("spec", "n", "mesh")
+
     def __init__(self, spec: HaloSpec, n: int, mesh):
-        self.spec, self.n, self.mesh = spec, n, mesh
+        # the exchanges read the schedule's shape; its arrays are `send` and `recv` on the device
+        self.spec, self.n, self.mesh = spec._replace(send_idx=None, recv_pos=None), n, mesh
         self.send, self.recv = mesh.local(spec.send_idx, torch.int64), mesh.local(spec.recv_pos, torch.int64)
 
     def gather_aug(self, v):
@@ -352,9 +380,20 @@ class _Halo:
         return halo_reduce(contrib[:, :self.n], contrib[:, self.n:], self.send, self.recv, self.spec, self.mesh)
 
 
-class _Shards:
+def shard_dot(mesh, a, b):
+    """The inner product of two sharded block vectors, summed over the
+    mesh: every shard reads the same value."""
+    local = sum((x * y).flatten(1).sum(1) for x, y in zip(a, b))
+    return mesh.psum(local)[0]
+
+
+class _Shards(_Node):
     """A pose-block partition on the mesh: this program's S shards, their
-    halo schedules and their local graphs flattened into one."""
+    halo schedules and their local graphs flattened into one. A tree node
+    (`_Node`): a solve passes it to its pieces as an input."""
+
+    _children = ("poses0", "free_p", "halo", "pp_ij", "pp_chain", "pp_bnd", "_chain_seg", "free_next0")
+    _static = ("mesh", "S", "B", "G")
 
     def __init__(self, part, mesh, free_next=False):
         loc = mesh.local
@@ -364,7 +403,9 @@ class _Shards:
         self.G = part.ghost_ids.shape[1]
         self.halo = _Halo(part.halo, self.B, mesh)
         self.pp_ij, self.pp_chain, self.pp_bnd = loc(part.pp_ij, torch.int64), loc(part.pp_chain), loc(part.pp_bnd)
-        self._chain_seg = None
+        # the chain slots, which do not change mid-solve
+        self._chain_seg = self.segments(torch.where(self.pp_chain, self.pp_ij[..., 0], self.B - 1), self.B)
+        self.free_next0 = None
         if free_next:
             # the free mask of the NEXT shard's first pose (gauges the
             # boundary coupling); the fixed set does not change mid-solve
@@ -373,10 +414,8 @@ class _Shards:
             self.free_next0 = loc(nxt)
 
     def dot(self, a, b):
-        """The inner product of two sharded block vectors, summed over the
-        mesh: every shard reads the same value."""
-        local = sum((x * y).flatten(1).sum(1) for x, y in zip(a, b))
-        return self.mesh.psum(local)[0]
+        """`shard_dot` on this partition's mesh."""
+        return shard_dot(self.mesh, a, b)
 
     def chi2(self, lin):
         c = shard_chi2(lin.e_pp, lin.w_pp, self.S)
@@ -399,8 +438,6 @@ class _Shards:
         tridiagonal, zero where either end is fixed."""
         S, B, d = self.S, self.B, lin.Ji_pp.shape[-1]
         chain = self.pp_chain.reshape(-1)
-        if self._chain_seg is None:  # the chain slots do not change mid-solve
-            self._chain_seg = self.segments(torch.where(self.pp_chain, self.pp_ij[..., 0], B - 1), B)
         U = self.segment_sum(pg._jtwj(lin.Ji_pp, lin.w_pp * chain[:, None, None], lin.Jj_pp), self._chain_seg)
         fnext = torch.cat([self.free_p[:, 1:], self.free_p.new_zeros((S, 1))], 1)
         U = U * (self.free_p * fnext)[..., None, None]
@@ -423,6 +460,9 @@ class _Shards:
 
 class _Shards2D(_Shards):
     """`_Shards` of a `PartitionedSE2`, with its landmark blocks."""
+
+    _children = _Shards._children + ("lms0", "free_l", "halo_l", "pl_ij", "lm_gid", "graph0")
+    _static = _Shards._static + ("BL", "GL")
 
     def __init__(self, part: PartitionedSE2, mesh, free_next=False):
         super().__init__(part, mesh, free_next)
@@ -474,6 +514,98 @@ def _damped_inverse(D, lam, free):
     return pg._damped_inverse(D.flatten(0, 1), lam, free.flatten()).view(D.shape)
 
 
+class _Params2D(NamedTuple):
+    """A partitioned SE2 solve's static arguments (part of its graphs' key)."""
+
+    precond: str
+
+
+class _Mid2D(NamedTuple):
+    lin: pg.Linearization
+    chi2: torch.Tensor  # the psum'd chi2
+    Dp: torch.Tensor
+    Dl: torch.Tensor
+    lam: torch.Tensor
+    pre: tuple  # (the chain's CR factor or the pose blocks' inverses, the landmark blocks' inverses)
+    tol2: torch.Tensor
+
+
+def _chi2_se2(sh, pb, lb):
+    return sh.chi2(pg.linearize_se2(sh.graph(pb, lb)))
+
+
+def _se2_head(inputs, st: pg.LMState):
+    """Linearize the shards' local graphs, reduce the gradient and diagonal
+    blocks by halo exchange, the preconditioner, start CG."""
+    sh, seg, prm = inputs
+    lam = st.lam
+    gk = sh.graph(st.poses, st.lms)
+    lin = pg.linearize_se2(gk)
+    chi2 = sh.chi2(lin)
+    gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
+    Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
+    Dl_inv = _damped_inverse(Dl, lam, sh.free_l)
+    if prm.precond == "chain":
+        # per-shard block-local chain tridiagonal: factored with cyclic
+        # reduction, applied shard-locally, no communication
+        L_pre, U_pre = sh.chain_blocks(lin)
+        Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
+        pre = (cr_factor(L_pre, Dp_d, U_pre), Dl_inv)
+    else:
+        pre = (_damped_inverse(Dp, lam, sh.free_p), Dl_inv)
+    mid = _Mid2D(lin, chi2, Dp, Dl, lam, pre, None)
+    free_p, free_l = sh.free_p[..., None], sh.free_l[..., None]
+    carry, tol2 = cg_carry((-gp * free_p, -gl * free_l), _se2_operators((inputs, mid))[1], 1e-8,
+                           partial(shard_dot, sh.mesh))
+    return mid._replace(tol2=tol2), carry
+
+
+def _se2_operators(cs):
+    (sh, seg, prm), mid = cs
+    free_p, free_l = sh.free_p[..., None], sh.free_l[..., None]
+    edge_hvp = pg._hvp_edges_se2(sh.graph0, mid.lin, seg)
+
+    def hvp(v):
+        vp, vl = v[0] * free_p, v[1] * free_l
+        hp, hl = sh.reduce(*edge_hvp((sh.halo.gather_aug(vp).flatten(0, 1), sh.halo_l.gather_aug(vl).flatten(0, 1))))
+        hp = hp + mid.lam * _bmv(mid.Dp, vp)
+        hl = hl + mid.lam * _bmv(mid.Dl, vl)
+        return hp * free_p + (1.0 - free_p) * v[0], hl * free_l + (1.0 - free_l) * v[1]
+
+    if prm.precond == "chain":
+        fac, Dl_inv = mid.pre
+
+        def pre(r):
+            return cr_solve(fac, r[0]), _bmv(Dl_inv, r[1])
+    else:
+        Dp_inv, Dl_inv = mid.pre
+
+        def pre(r):
+            return _bmv(Dp_inv, r[0]), _bmv(Dl_inv, r[1])
+
+    return hvp, pre
+
+
+def _se2_tail(inputs, st: pg.LMState, mid: _Mid2D, carry) -> pg.LMState:
+    sh = inputs[0]
+    dp, dl = carry.x
+    new_pb = st.poses + dp * sh.free_p[..., None]
+    new_pb = torch.cat([new_pb[..., :2], lie.wrap_angle(new_pb[..., 2:])], -1)
+    new_lb = st.lms + dl * sh.free_l[..., None]
+    new_chi2 = _chi2_se2(sh, new_pb, new_lb)
+    accept = new_chi2 < mid.chi2
+    pb = torch.where(accept, new_pb, st.poses)
+    lb = torch.where(accept, new_lb, st.lms)
+    lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
+    trace = pg.trace_put(st.trace, st.k, torch.where(accept, new_chi2, mid.chi2))
+    return pg.LMState(pb, lb, lam, trace, st.k + 1, st.cg_total + carry.k)
+
+
+def cg_block_loop(operators, mesh, cg_iters):
+    """The solvers' CG loop (`pcg.cg_loop`) with the mesh's dot."""
+    return cg_loop(operators, lambda cs: cs[1].tol2, cg_iters, tree_dot=partial(shard_dot, mesh))
+
+
 def optimize_se2_partitioned(
     g: PoseGraph2D,
     mesh,
@@ -492,68 +624,22 @@ def optimize_se2_partitioned(
     "chain": each shard cyclic-reduction-factors ITS OWN block's
     odometry-chain tridiagonal with no extra communication; boundary chain
     edges stay unpreconditioned.
+
+    The LM iterations (JAX's ``fori_loop``) run through
+    `utils.graphs.solve_loop`: a head, CG in blocks of `pcg.BLOCK` masked
+    steps with the psum'd stopping test on the device, a tail.
     """
     if precond not in PRECONDITIONERS_SE2:
         raise ValueError(f"precond must be one of {PRECONDITIONERS_SE2}, got {precond!r}")
     part = partition_se2(g, mesh.size, halo_mode=halo_mode)
     sh = _Shards2D(part, mesh)
-    free_p, free_l = sh.free_p[..., None], sh.free_l[..., None]
-
-    def chi2_of(pb, lb):
-        return sh.chi2(pg.linearize_se2(sh.graph(pb, lb)))
-
-    seg = pg.edge_segments(sh.graph0)
-    pb, lb = sh.poses0, sh.lms0
-    trace = [chi2_of(pb, lb)]
-    lam = torch.tensor(lm_lambda0, dtype=pb.dtype, device=pb.device)
-    cg_total = 0
-    for _ in range(iters):
-        gk = sh.graph(pb, lb)
-        lin = pg.linearize_se2(gk)
-        chi2 = sh.chi2(lin)
-        gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
-        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
-        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
-
-        def hvp(v, edge_hvp=edge_hvp, Dp=Dp, Dl=Dl, lam=lam):
-            vp, vl = v[0] * free_p, v[1] * free_l
-            hp, hl = sh.reduce(*edge_hvp((sh.halo.gather_aug(vp).flatten(0, 1),
-                                          sh.halo_l.gather_aug(vl).flatten(0, 1))))
-            hp = hp + lam * _bmv(Dp, vp)
-            hl = hl + lam * _bmv(Dl, vl)
-            return hp * free_p + (1.0 - free_p) * v[0], hl * free_l + (1.0 - free_l) * v[1]
-
-        Dl_inv = _damped_inverse(Dl, lam, sh.free_l)
-        if precond == "chain":
-            # per-shard block-local chain tridiagonal: factored with cyclic
-            # reduction, applied shard-locally, no communication
-            L_pre, U_pre = sh.chain_blocks(lin)
-            Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
-            fac = cr_factor(L_pre, Dp_d, U_pre)
-
-            def pre(r, fac=fac, Dl_inv=Dl_inv):
-                return cr_solve(fac, r[0]), _bmv(Dl_inv, r[1])
-        else:
-            Dp_inv = _damped_inverse(Dp, lam, sh.free_p)
-
-            def pre(r, Dp_inv=Dp_inv, Dl_inv=Dl_inv):
-                return _bmv(Dp_inv, r[0]), _bmv(Dl_inv, r[1])
-
-        (dp, dl), cg_k, _ = pcg(hvp, (-gp * free_p, -gl * free_l), pre, max_iters=cg_iters, rtol=1e-8,
-                                tree_dot=sh.dot)
-        new_pb = pb + dp * free_p
-        new_pb = torch.cat([new_pb[..., :2], lie.wrap_angle(new_pb[..., 2:])], -1)
-        new_lb = lb + dl * free_l
-        new_chi2 = chi2_of(new_pb, new_lb)
-        accept = new_chi2 < chi2
-        pb = torch.where(accept, new_pb, pb)
-        lb = torch.where(accept, new_lb, lb)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
-        trace.append(torch.where(accept, new_chi2, chi2))
-        cg_total += cg_k
-    g_out = g.with_poses(sh.blocks_of(pb, g.poses), sh.lms_of(lb, g.landmarks))
+    inputs = (sh, pg.edge_segments(sh.graph0), _Params2D(precond))
+    state = pg._start(sh.poses0, _chi2_se2(sh, sh.poses0, sh.lms0), lm_lambda0, iters, sh.lms0)
+    solve = graphs.Solve(_se2_head, _se2_tail, pg._cg_report, cg_block_loop(_se2_operators, mesh, cg_iters))
+    st, (cg_total,) = graphs.solve_loop(f"optimize_se2_partitioned ({precond})", solve, inputs, state, iters)
+    g_out = g.with_poses(sh.blocks_of(st.poses, g.poses), sh.lms_of(st.lms, g.landmarks))
     stats = {"partition": partition_stats(part), "comm": comm_volume(part, iters, cg_total), "cg_total": cg_total}
-    return g_out, torch.stack(trace), stats
+    return g_out, st.trace, stats
 
 
 # -- SE3: pose-only graphs, 7-dim state, 6-DOF twist updates ---------------------
@@ -645,6 +731,86 @@ def partition_se3(g, n_dev: int) -> PartitionedSE3:
     )
 
 
+class _Consts3D(NamedTuple):
+    graph0: PoseGraph3D  # the shards' local graphs flattened, own and ghost slots
+    I_seg: ss.SegmentIndex
+    J_seg: ss.SegmentIndex
+
+
+class _Mid3D(NamedTuple):
+    lin: pg.Linearization
+    chi2: torch.Tensor
+    Dp: torch.Tensor
+    lam: torch.Tensor
+    pre: object  # the SPIKE factor or the pose blocks' inverses
+    tol2: torch.Tensor
+
+
+def _linearize_se3(sh, c, pb):
+    return pg.linearize_se3(c.graph0.with_poses(sh.halo.gather_aug(pb).flatten(0, 1)))
+
+
+def _reduce_se3(sh, c, a, b):
+    """Per-edge terms at both endpoints -> own (S, B, ...) blocks."""
+    return sh.halo.reduce(sh.segment_sum(a, c.I_seg) + sh.segment_sum(b, c.J_seg))
+
+
+def _se3_head(inputs, st: pg.LMState):
+    sh, c, prm = inputs
+    lam = st.lam
+    lin = _linearize_se3(sh, c, st.poses)
+    chi2 = sh.chi2(lin)
+    we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
+    gp = _reduce_se3(sh, c, torch.einsum("kdi,kd->ki", lin.Ji_pp, we), torch.einsum("kdi,kd->ki", lin.Jj_pp, we))
+    Dp = _reduce_se3(sh, c, pg._jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), pg._jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp))
+    Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
+    if prm.precond == "spike":
+        L_pre, U_pre = sh.chain_blocks(lin)
+        pre = spike_factor(L_pre, Dp_d, U_pre, sh.boundary_block(lin), sh.mesh)
+    else:
+        pre = pg._inv(Dp_d)
+    mid = _Mid3D(lin, chi2, Dp, lam, pre, None)
+    carry, tol2 = cg_carry((-gp * sh.free_p[..., None],), _se3_operators((inputs, mid))[1], 1e-8,
+                           partial(shard_dot, sh.mesh))
+    return mid._replace(tol2=tol2), carry
+
+
+def _se3_operators(cs):
+    (sh, c, prm), mid = cs
+    lin, free_p = mid.lin, sh.free_p[..., None]
+    I_flat, J_flat = c.graph0.pp_ij[:, 0], c.graph0.pp_ij[:, 1]
+
+    def hvp(v):
+        vp = v[0] * free_p
+        va = sh.halo.gather_aug(vp).flatten(0, 1)
+        Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, va[I_flat]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, va[J_flat])
+        WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
+        hp = _reduce_se3(sh, c, torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv))
+        hp = hp + mid.lam * _bmv(mid.Dp, vp)
+        return (hp * free_p + (1.0 - free_p) * v[0],)
+
+    if prm.precond == "spike":
+        def pre(r):
+            return (spike_solve(mid.pre, r[0], sh.mesh),)
+    else:
+        def pre(r):
+            return (_bmv(mid.pre, r[0]),)
+
+    return hvp, pre
+
+
+def _se3_tail(inputs, st: pg.LMState, mid: _Mid3D, carry) -> pg.LMState:
+    sh, c, _ = inputs
+    (dp,) = carry.x
+    new_pb = pg._T_to_pose7(pg._pose7_to_T(st.poses) @ lie.se3_exp(dp * sh.free_p[..., None]))
+    new_chi2 = sh.chi2(_linearize_se3(sh, c, new_pb))
+    accept = new_chi2 < mid.chi2
+    pb = torch.where(accept, new_pb, st.poses)
+    lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
+    trace = pg.trace_put(st.trace, st.k, torch.where(accept, new_chi2, mid.chi2))
+    return pg.LMState(pb, None, lam, trace, st.k + 1, st.cg_total + carry.k)
+
+
 def optimize_se3_partitioned(
     g: PoseGraph3D,
     mesh,
@@ -660,67 +826,22 @@ def optimize_se3_partitioned(
     cyclic-reduction-factors its local 6x6 block tridiagonal and the
     boundary couplings form the replicated SPIKE interface system
     (`spike.py`), the distributed form of the single-device chain
-    preconditioner.
+    preconditioner. The LM loop runs as `optimize_se2_partitioned`'s.
     """
     if precond not in PRECONDITIONERS_SE3:
         raise ValueError(f"precond must be one of {PRECONDITIONERS_SE3}, got {precond!r}")
     part = partition_se3(g, mesh.size)
     sh = _Shards(part, mesh, free_next=True)
-    loc, S, B, P = mesh.local, sh.S, sh.B, sh.B + sh.G
+    loc, S, P = mesh.local, sh.S, sh.B + sh.G
     dev = sh.poses0.device
     graph0 = PoseGraph3D(sh.poses0.new_zeros((S * P, 7)), torch.ones(S * P, dtype=torch.bool, device=dev),
                          offset_pairs(sh.pp_ij, P, P, mesh=mesh), loc(part.pp_meas).flatten(0, 1),
                          loc(part.pp_info).flatten(0, 1), loc(part.pp_mask).flatten(0, 1),
                          torch.zeros(S * P, dtype=torch.bool, device=dev))
-    I, J = sh.pp_ij[..., 0], sh.pp_ij[..., 1]
-    I_flat, J_flat = graph0.pp_ij[:, 0], graph0.pp_ij[:, 1]
-    I_seg, J_seg = sh.segments(I, P), sh.segments(J, P)
-    free_p = sh.free_p[..., None]
-
-    def linearize(pb):
-        return pg.linearize_se3(graph0.with_poses(sh.halo.gather_aug(pb).flatten(0, 1)))
-
-    def reduce(a, b):
-        """Per-edge terms at both endpoints -> own (S, B, ...) blocks."""
-        return sh.halo.reduce(sh.segment_sum(a, I_seg) + sh.segment_sum(b, J_seg))
-
+    c = _Consts3D(graph0, sh.segments(sh.pp_ij[..., 0], P), sh.segments(sh.pp_ij[..., 1], P))
+    inputs = (sh, c, _Params2D(precond))
     pb = sh.poses0
-    trace = [sh.chi2(linearize(pb))]
-    lam = torch.tensor(lm_lambda0, dtype=pb.dtype, device=dev)
-    for _ in range(iters):
-        lin = linearize(pb)
-        chi2 = sh.chi2(lin)
-        we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
-        gp = reduce(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), torch.einsum("kdi,kd->ki", lin.Jj_pp, we))
-        Dp = reduce(pg._jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), pg._jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp))
-
-        def hvp(v, lin=lin, Dp=Dp, lam=lam):
-            vp = v[0] * free_p
-            va = sh.halo.gather_aug(vp).flatten(0, 1)
-            Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, va[I_flat]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, va[J_flat])
-            WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
-            hp = reduce(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv))
-            hp = hp + lam * _bmv(Dp, vp)
-            return (hp * free_p + (1.0 - free_p) * v[0],)
-
-        Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
-        if precond == "spike":
-            L_pre, U_pre = sh.chain_blocks(lin)
-            sf = spike_factor(L_pre, Dp_d, U_pre, sh.boundary_block(lin), mesh)
-
-            def pre(r, sf=sf):
-                return (spike_solve(sf, r[0], mesh),)
-        else:
-            Dp_inv = pg._inv(Dp_d)
-
-            def pre(r, Dp_inv=Dp_inv):
-                return (_bmv(Dp_inv, r[0]),)
-
-        (dp,), _, _ = pcg(hvp, (-gp * free_p,), pre, max_iters=cg_iters, rtol=1e-8, tree_dot=sh.dot)
-        new_pb = pg._T_to_pose7(pg._pose7_to_T(pb) @ lie.se3_exp(dp * free_p))
-        new_chi2 = sh.chi2(linearize(new_pb))
-        accept = new_chi2 < chi2
-        pb = torch.where(accept, new_pb, pb)
-        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
-        trace.append(torch.where(accept, new_chi2, chi2))
-    return g.with_poses(sh.blocks_of(pb, g.poses)), torch.stack(trace)
+    state = pg._start(pb, sh.chi2(_linearize_se3(sh, c, pb)), lm_lambda0, iters)
+    solve = graphs.Solve(_se3_head, _se3_tail, pg._cg_report, cg_block_loop(_se3_operators, mesh, cg_iters))
+    st, _ = graphs.solve_loop(f"optimize_se3_partitioned ({precond})", solve, inputs, state, iters)
+    return g.with_poses(sh.blocks_of(st.poses, g.poses)), st.trace

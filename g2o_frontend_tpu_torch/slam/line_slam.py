@@ -132,12 +132,16 @@ class LineSlam2D:
 
         The graph is packed at its exact counts, where the JAX package pads
         it (`solvers.line_slam.make_line_graph`): padding changes the
-        float32 sums' rounding, which this algorithm amplifies (one LM step
-        far out turns 1e-4 m into 0.6 m): padded, the 452-scan world of
-        `chip_smoke.py` made 212 lines on an H100, outside its `LINE_BAND`
-        around the JAX package's 189. So each solve is a new key of
-        `utils.graphs.solve_loop`: its CG blocks replay a graph, its head
-        and tail run eagerly."""
+        float32 sums' rounding, which this algorithm amplifies: padded, the
+        452-scan world of `chip_smoke.py` made 212 lines on an H100, outside
+        its `LINE_BAND` around the JAX package's 189. Stepped beside the
+        JAX package, both padded, on the CPU
+        (``tools/jax_line_slam_reference.py --lockstep``; ROADMAP.md
+        section 3, "Not faults"), the two part only by amplified rounding:
+        given the same lines, every solve agrees on the same inputs within
+        5.4e-4 m, yet the fourth turns a 2.4e-6 m gap going in into 0.33 m.
+        So each solve is a new key of `utils.graphs.solve_loop`: its CG
+        blocks replay a graph, its head and tail run eagerly."""
         cfg = self.cfg
         n, nl, ep, el = len(self.poses), len(self.lines), len(self.pp_edges), len(self.pl_edges)
         g = _line_graph(np.asarray(self.poses), self.lines, self.pp_edges, self.pl_edges, (0,), (n, nl, ep, el),

@@ -177,7 +177,7 @@ def optimize_ba(ba: BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambda0: 
     consts = _Consts((ba.pose_mask & ~ba.fixed).to(dtype), ba.point_mask.to(dtype),
                      masked_segments(ba.obs_ij[:, 0], ba.obs_mask, NP),
                      masked_segments(ba.obs_ij[:, 1], ba.obs_mask, NL))
-    state = _start(ba, _linearize(ba, False)[4], lm_lambda0, iters, ba.points)
+    state = _start(ba.poses, _linearize(ba, False)[4], lm_lambda0, iters, ba.points)
     solve = graphs.Solve(_head, _tail, _cg_report, cg_loop(_operators, lambda cs: cs[1].tol2, cg_iters))
     st, _ = graphs.solve_loop("optimize_ba", solve, (ba, consts, cg_iters), state, iters)
     return ba._replace(poses=st.poses, points=st.lms), st.trace

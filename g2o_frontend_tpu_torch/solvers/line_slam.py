@@ -178,7 +178,7 @@ def lm_with_landmarks(name, g, lms, free_p, free_l, linearize, retract, iters, c
     # the edge ends sorted once, for every sum of the solve
     inputs = (g, _SE2Consts(free_p, free_l, edge_segments(g, lms.shape[0]), None, None),
               _Model(linearize, retract, cg_iters))
-    state = _start(g, linearize(g, g.poses, lms, False).chi2, lm_lambda0, iters, lms)
+    state = _start(g.poses, linearize(g, g.poses, lms, False).chi2, lm_lambda0, iters, lms)
     solve = graphs.Solve(_head, _tail, _cg_report, cg_loop(_se2_operators, lambda cs: cs[1].tol2, cg_iters))
     st, _ = graphs.solve_loop(name, solve, inputs, state, iters)
     return st.poses, st.lms, st.trace

@@ -10,8 +10,10 @@ max_iters`` and ``r.z > rtol^2 * max(r0.z, 1e-30)``.
 Two forms share the arithmetic (`cg_start`, `cg_step`):
 
 - `pcg`, the eager loop: the stopping test read on the host once an
-  iteration. Only the distributed solvers (`parallel/`, with their
-  `tree_dot`) call it, until their own loops run as graphs.
+  iteration. No solver of the package calls it: every LM loop (the
+  single-device solvers and those of `parallel/`) runs `cg_loop`. It
+  stays as the plain form of the JAX version's loop, which the tests hold
+  `pcg_blocked` and the JAX `pcg` to.
 - `cg_loop`, the loop as a `utils.graphs.Loop` with the JAX test computed
   on the device: `graphs.while_loop` (and the solvers' `graphs.solve_loop`)
   runs it in blocks of `BLOCK` masked steps, one host read of the test a
@@ -76,9 +78,9 @@ def cg_step(hvp: Callable, precond: Callable, x, r, p, rz, tree_dot: Callable | 
     return x, r, _axpy(beta, p, z), rz_new
 
 
-def cg_carry(b, precond: Callable, rtol: float):
+def cg_carry(b, precond: Callable, rtol: float, tree_dot: Callable | None = None):
     """(the `CGCarry` at x0 = 0, tol2): `cg_start` with k = 0 on the device."""
-    x, r, p, rz, tol2 = cg_start(b, precond, rtol)
+    x, r, p, rz, tol2 = cg_start(b, precond, rtol, tree_dot)
     return CGCarry(x, r, p, rz, torch.zeros((), dtype=torch.int64, device=rz.device)), tol2
 
 
@@ -109,17 +111,20 @@ def pcg(hvp: Callable, b, precond: Callable, *, max_iters: int = 100, rtol: floa
     return x, k, rz
 
 
-def cg_loop(operators: Callable, tol2_of: Callable, max_iters: int, block: int | None = None) -> graphs.Loop:
+def cg_loop(operators: Callable, tol2_of: Callable, max_iters: int, block: int | None = None,
+            tree_dot: Callable | None = None) -> graphs.Loop:
     """CG as a `graphs.Loop` over `CGCarry`: ``operators(consts)`` gives
     (hvp, precond), ``tol2_of(consts)`` the threshold; the test is the JAX
-    version's ``k < max_iters & r.z > tol2``."""
+    version's ``k < max_iters & r.z > tol2``. `tree_dot` is `pcg`'s; it
+    reads no tensor but its arguments (a distributed solver's dot over the
+    shards of its mesh)."""
 
     def cond(consts, c):
         return (c.k < max_iters) & (c.rz > tol2_of(consts))
 
     def body(consts, c):
         hvp, precond = operators(consts)
-        return CGCarry(*cg_step(hvp, precond, c.x, c.r, c.p, c.rz), c.k + 1)
+        return CGCarry(*cg_step(hvp, precond, c.x, c.r, c.p, c.rz, tree_dot), c.k + 1)
 
     return graphs.Loop(cond, body, max_iters, BLOCK if block is None else block)
 

@@ -299,14 +299,14 @@ def trace_put(trace, k, value):
     return torch.where(torch.arange(trace.shape[0], device=trace.device) > k, value, trace)
 
 
-def _start(g, chi2, lm_lambda0, iters, landmarks=None, cg=True, stops=False):
-    """An `LMState` at the graph's poses, lambda0 and `chi2` (the trace's
-    first entry and its padding)."""
-    lam = torch.tensor(lm_lambda0, dtype=g.poses.dtype, device=g.poses.device)
-    zero = torch.zeros((), dtype=torch.int64, device=g.poses.device)
-    return LMState(g.poses, landmarks, lam, chi2.expand(iters + 1).clone(), zero, zero if cg else None,
+def _start(poses, chi2, lm_lambda0, iters, landmarks=None, cg=True, stops=False):
+    """An `LMState` at `poses`, lambda0 and `chi2` (the trace's first entry
+    and its padding)."""
+    lam = torch.tensor(lm_lambda0, dtype=poses.dtype, device=poses.device)
+    zero = torch.zeros((), dtype=torch.int64, device=poses.device)
+    return LMState(poses, landmarks, lam, chi2.expand(iters + 1).clone(), zero, zero if cg else None,
                    torch.full_like(lam, 2.0) if stops else None,
-                   torch.zeros((), dtype=torch.bool, device=g.poses.device) if stops else None)
+                   torch.zeros((), dtype=torch.bool, device=poses.device) if stops else None)
 
 
 def _cg_report(st):
@@ -413,7 +413,7 @@ def optimize_se2(
     free_l = g.landmark_mask.to(dtype)
     chain, chain_i = _chain(g) if precond == "chain" else (None, None)
     inputs = (g, _SE2Consts(free_p, free_l, edge_segments(g), chain, chain_i), _Params(huber_delta, precond, cg_iters))
-    state = _start(g, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks)
+    state = _start(g.poses, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks)
     solve = graphs.Solve(_se2_head, _se2_tail, _cg_report, cg_loop(_se2_operators, lambda cs: cs[1].tol2, cg_iters))
     st, (cg_total,) = graphs.solve_loop(f"optimize_se2 ({precond})", solve, inputs, state, iters)
     return g.with_poses(st.poses, st.lms), OptStats(st.trace, st.lam, cg_total)
@@ -543,7 +543,7 @@ def optimize_se2_direct(
     free_p = (g.pose_mask & ~g.fixed).to(dtype)
     free_l = g.landmark_mask.to(dtype)
     free = torch.cat([free_p.repeat_interleave(3), free_l.repeat_interleave(2)])
-    state = _start(g, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, cg=False, stops=True)
+    state = _start(g.poses, linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, cg=False, stops=True)
     solve = graphs.Solve(_direct_head, _direct_tail, _direct_report, stops=True)
     st, (_, k) = graphs.solve_loop("optimize_se2_direct", solve, (g, (free, _dense_plan(g)), huber_delta), state,
                                    iters)
@@ -688,7 +688,7 @@ def optimize_se3(
     chain, chain_i = _chain(g) if precond == "chain" else (None, None)
     consts = _SE3Consts(free_p, ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP), chain,
                         chain_i)
-    state = _start(g, linearize_se3(g, huber_delta).chi2, lm_lambda0, iters)
+    state = _start(g.poses, linearize_se3(g, huber_delta).chi2, lm_lambda0, iters)
     solve = graphs.Solve(_se3_head, _se3_tail, _cg_report, cg_loop(_se3_operators, lambda cs: cs[1].tol2, cg_iters))
     st, (cg_total,) = graphs.solve_loop(f"optimize_se3 ({precond})", solve,
                                         (g, consts, _Params(huber_delta, precond, cg_iters)), state, iters)

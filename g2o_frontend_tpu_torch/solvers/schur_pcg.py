@@ -329,7 +329,7 @@ def optimize_se2_schur(
     pose_k, lm_k = (g.pl_ij[:, 0], g.pl_ij[:, 1]) if has_pl else (None, None)
     consts = SchurConsts(NP, NL, has_pl, use_woodbury, free_p, free_l, pose_k, lm_k, pg.edge_segments(g),
                          _arrow_index(pose_k, lm_k, NP, NL) if use_woodbury else None, chain, chain_i)
-    state = pg._start(g, pg.linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, stops=True)
+    state = pg._start(g.poses, pg.linearize_se2(g, huber_delta).chi2, lm_lambda0, iters, g.landmarks, stops=True)
     solve = graphs.Solve(_head, _tail, _report, cg_loop(_operators, lambda cs: cs[1].tol2, cg_iters), stops=True)
     st, (_, k, cg_total) = graphs.solve_loop("optimize_se2_schur", solve,
                                              (g, consts, _Params(huber_delta, tol, cg_rtol, cg_iters)), state, iters)

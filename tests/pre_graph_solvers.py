@@ -3,7 +3,8 @@
 stopping test and the convergence tests read on the host), which
 ``tests/test_torch_solver_graphs.py`` (the 2D and 3D pose graphs) and
 ``tests/test_torch_landmark_graphs.py`` (line SLAM, the plane graph, BA)
-hold the port's solvers to bit for bit. The helpers they call are the
+hold the port's solvers to bit for bit, and ``tests/test_torch_parallel_graphs.py``
+the distributed solvers. The helpers they call are the
 port's own, but for `landmark_edge_segments`, the landmark loops' edge
 sort as it was then (every edge into its own row, padding included)."""
 from __future__ import annotations
@@ -27,6 +28,15 @@ from g2o_frontend_tpu_torch.solvers.pose_graph import (PRECONDITIONERS, OptStats
 from g2o_frontend_tpu_torch.solvers.schur_pcg import (WOODBURY_MAX_DIM, SchurStats, _arrow_index, _block_diag,
                                                       _damped_blocks, _landmark_arrow)
 from g2o_frontend_tpu_torch.solvers.tridiag import cr_factor, cr_solve
+from g2o_frontend_tpu_torch.parallel import partitioned_pose_graph as ppg
+from g2o_frontend_tpu_torch.parallel.mesh import offset_pairs, shard_rows, tile
+from g2o_frontend_tpu_torch.parallel.partitioned_pose_graph import (PRECONDITIONERS_SE2, PRECONDITIONERS_SE3, _bmv,
+                                                                    _Shards, _Shards2D, comm_volume, partition_se2,
+                                                                    partition_se3, partition_stats)
+from g2o_frontend_tpu_torch.parallel.partitioned_schur import MAX_LANDMARKS, _damped_or_eye
+from g2o_frontend_tpu_torch.parallel.sharded_pose_graph import shard_chi2
+from g2o_frontend_tpu_torch.parallel.spike import spike_factor, spike_solve, spike_solve_bytes
+from g2o_frontend_tpu_torch.solvers.ba import BAProblem, _linearize
 from g2o_frontend_tpu_torch.utils import lie
 
 
@@ -552,3 +562,514 @@ def optimize_ba(ba: tba.BAProblem, iters: int = 10, cg_iters: int = 50, lm_lambd
         lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
         trace.append(torch.where(accept, new_chi2, chi2))
     return ba._replace(poses=poses, points=points), torch.stack(trace)
+
+# -- the distributed solvers (parallel/) as they were before their LM loops ran through solve_loop --------------
+# Verbatim but for `ppg.` before the partitioned module's `_damped_inverse`, whose name the single-device one
+# above takes.
+
+def optimize_se2_sharded(g: PoseGraph2D, mesh, iters: int = 10, cg_iters: int = 100, lm_lambda0: float = 1e-4):
+    """LM-optimize with edges sharded over `mesh`; returns (graph, chi2 trace)."""
+    dev, dtype = mesh.device, g.poses.dtype
+    NP, NL = g.poses.shape[0], g.landmarks.shape[0]
+    pp = [shard_rows(getattr(g, f), mesh) for f in ("pp_ij", "pp_meas", "pp_info", "pp_mask")]
+    pl = [shard_rows(getattr(g, f), mesh) for f in ("pl_ij", "pl_meas", "pl_info", "pl_mask")]
+    S = pp[0].shape[0]
+    flat = PoseGraph2D(
+        poses=tile(g.poses.to(dev), S), pose_mask=tile(g.pose_mask.to(dev), S),
+        landmarks=tile(g.landmarks.to(dev), S), landmark_mask=tile(g.landmark_mask.to(dev), S),
+        pp_ij=offset_pairs(pp[0], NP, NP, mesh=mesh), pp_meas=pp[1].flatten(0, 1), pp_info=pp[2].flatten(0, 1),
+        pp_mask=pp[3].flatten(0, 1), pl_ij=offset_pairs(pl[0], NP, NL, mesh=mesh), pl_meas=pl[1].flatten(0, 1),
+        pl_info=pl[2].flatten(0, 1), pl_mask=pl[3].flatten(0, 1), fixed=tile(g.fixed.to(dev), S))
+    free_p = (g.pose_mask & ~g.fixed).to(device=dev, dtype=dtype)
+    free_l = g.landmark_mask.to(device=dev, dtype=dtype)
+
+    def psum_rows(x, n):
+        return mesh.psum(x.view((S, n) + x.shape[1:]))[0]
+
+    def linearize(poses, lms):
+        gk = flat.with_poses(tile(poses, S), tile(lms, S))
+        lin = pg.linearize_se2(gk)
+        chi2 = shard_chi2(lin.e_pp, lin.w_pp, S)
+        if lin.e_pl is not None:
+            chi2 = chi2 + shard_chi2(lin.e_pl, lin.w_pl, S)
+        return gk, lin, mesh.psum(chi2)[0]
+
+    seg = pg.edge_segments(flat)  # the edge ends sorted once, for every sum of the solve
+    poses, lms = g.poses.to(dev), g.landmarks.to(dev)
+    trace = [linearize(poses, lms)[2]]
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
+    for _ in range(iters):
+        gk, lin, chi2 = linearize(poses, lms)
+        gp, gl = pg._grad_se2(gk, lin, seg)
+        Dp, Dl = pg._diag_blocks_se2(gk, lin, seg)
+        gp, gl, Dp, Dl = psum_rows(gp, NP), psum_rows(gl, NL), psum_rows(Dp, NP), psum_rows(Dl, NL)
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
+
+        def sharded_edge_hvp(v, edge_hvp=edge_hvp):
+            hp, hl = edge_hvp((tile(v[0], S), tile(v[1], S)))
+            return psum_rows(hp, NP), psum_rows(hl, NL)
+
+        hvp = pg._compose_hvp(sharded_edge_hvp, free_p, free_l, lam, Dp, Dl)
+        pre = pg._block_jacobi_precond(Dp, Dl, free_p, free_l, lam)
+        (dp, dl), _, _ = pcg(hvp, (-gp * free_p[:, None], -gl * free_l[:, None]), pre, max_iters=cg_iters, rtol=1e-8)
+        new_poses = poses + dp * free_p[:, None]
+        new_poses = torch.cat([new_poses[:, :2], lie.wrap_angle(new_poses[:, 2:])], 1)
+        new_lms = lms + dl * free_l[:, None]
+        new_chi2 = linearize(new_poses, new_lms)[2]
+        accept = new_chi2 < chi2
+        poses = torch.where(accept, new_poses, poses)
+        lms = torch.where(accept, new_lms, lms)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+    return g.with_poses(poses.to(g.poses.device), lms.to(g.poses.device)), torch.stack(trace)
+
+
+def optimize_se3_sharded(g: PoseGraph3D, mesh, iters: int = 10, cg_iters: int = 100, lm_lambda0: float = 1e-4):
+    """LM-optimize with edges sharded over `mesh`; returns (graph, chi2 trace)."""
+    dev, dtype = mesh.device, g.poses.dtype
+    NP = g.poses.shape[0]
+    ij, meas, info, mask = (shard_rows(getattr(g, f), mesh) for f in ("pp_ij", "pp_meas", "pp_info", "pp_mask"))
+    S = ij.shape[0]
+    flat = PoseGraph3D(tile(g.poses.to(dev), S), tile(g.pose_mask.to(dev), S), offset_pairs(ij, NP, NP, mesh=mesh),
+                       meas.flatten(0, 1), info.flatten(0, 1), mask.flatten(0, 1), tile(g.fixed.to(dev), S))
+    I, J = flat.pp_ij[:, 0], flat.pp_ij[:, 1]
+    I_seg, J_seg = ss.SegmentIndex(I, S * NP), ss.SegmentIndex(J, S * NP)
+    free_p = (g.pose_mask & ~g.fixed).to(device=dev, dtype=dtype)
+
+    def psum_rows(x):
+        return mesh.psum(x.view((S, NP) + x.shape[1:]))[0]
+
+    def scatter(a, b):
+        """Each shard's sum of per-edge terms at both endpoints, psum'd."""
+        return psum_rows(ss.segment_sum(a, I_seg) + ss.segment_sum(b, J_seg))
+
+    def linearize(poses):
+        lin = pg.linearize_se3(flat.with_poses(tile(poses, S)))
+        return lin, mesh.psum(shard_chi2(lin.e_pp, lin.w_pp, S))[0]
+
+    poses = g.poses.to(dev)
+    trace = [linearize(poses)[1]]
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
+    for _ in range(iters):
+        lin, chi2 = linearize(poses)
+        we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
+        gp = scatter(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), torch.einsum("kdi,kd->ki", lin.Jj_pp, we))
+        Dp = scatter(pg._jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), pg._jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp))
+
+        def hvp(v, lin=lin, Dp=Dp, lam=lam):
+            vp = tile(v[0] * free_p[:, None], S)
+            Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
+            WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
+            hp = scatter(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv))
+            hp = hp + lam * torch.einsum("kij,kj->ki", Dp, v[0] * free_p[:, None])
+            return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * v[0],)
+
+        Dp_inv = pg._damped_inverse(Dp, lam, free_p)
+
+        def pre(r, Dp_inv=Dp_inv):
+            return (torch.einsum("kij,kj->ki", Dp_inv, r[0]),)
+
+        (dp,), _, _ = pcg(hvp, (-gp * free_p[:, None],), pre, max_iters=cg_iters, rtol=1e-8)
+        new_poses = pg._T_to_pose7(pg._pose7_to_T(poses) @ lie.se3_exp(dp * free_p[:, None]))
+        new_chi2 = linearize(new_poses)[1]
+        accept = new_chi2 < chi2
+        poses = torch.where(accept, new_poses, poses)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+    return g.with_poses(poses.to(g.poses.device)), torch.stack(trace)
+
+
+def optimize_ba_sharded(ba: BAProblem, mesh, iters: int = 10, cg_iters: int = 50, lm_lambda0: float = 1e-4):
+    """Observation-sharded LM-BA; returns (problem, chi2 trace)."""
+    dev, dtype = mesh.device, ba.poses.dtype
+    NP, NL = ba.poses.shape[0], ba.points.shape[0]
+    ij, z, info, mask = (shard_rows(getattr(ba, f), mesh) for f in ("obs_ij", "obs_z", "obs_info", "obs_mask"))
+    S = ij.shape[0]
+    flat = BAProblem(tile(ba.poses.to(dev), S), tile(ba.pose_mask.to(dev), S), tile(ba.points.to(dev), S),
+                     tile(ba.point_mask.to(dev), S), offset_pairs(ij, NP, NL, mesh=mesh), z.flatten(0, 1),
+                     info.flatten(0, 1), mask.flatten(0, 1), tile(ba.fixed.to(dev), S))
+    ci, pi = flat.obs_ij[:, 0], flat.obs_ij[:, 1]
+    ci_seg, pi_seg = ss.SegmentIndex(ci, S * NP), ss.SegmentIndex(pi, S * NL)  # sorted once a solve
+    free_c = (ba.pose_mask & ~ba.fixed).to(device=dev, dtype=dtype)
+    free_p = ba.point_mask.to(device=dev, dtype=dtype)
+    eye3, eye6 = torch.eye(3, dtype=dtype, device=dev), torch.eye(6, dtype=dtype, device=dev)
+
+    def psum_seg(x, seg, n):
+        """Each shard's segment sum into n rows, psum'd."""
+        return mesh.psum(ss.segment_sum(x, seg).view((S, n) + x.shape[1:]))[0]
+
+    def local_lin(poses, points, jacobians=True):
+        e, Jc, Jp, w, _ = _linearize(flat._replace(poses=tile(poses, S), points=tile(points, S)), jacobians)
+        return e, Jc, Jp, w, mesh.psum(shard_chi2(e, w, S))[0]
+
+    poses, points = ba.poses.to(dev), ba.points.to(dev)
+    trace = [local_lin(poses, points, False)[4]]
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
+    for _ in range(iters):
+        e, Jc, Jp, w, chi2 = local_lin(poses, points)
+        we = torch.einsum("kij,kj->ki", w, e)
+        g_c = psum_seg(torch.einsum("kdi,kd->ki", Jc, we), ci_seg, NP)
+        g_p = psum_seg(torch.einsum("kdi,kd->ki", Jp, we), pi_seg, NL)
+        D_c = psum_seg(_jtwj(Jc, w, Jc), ci_seg, NP)
+        H_pp = psum_seg(_jtwj(Jp, w, Jp), pi_seg, NL)
+        H_pp_inv = _inv(torch.where(free_p[:, None, None] > 0, H_pp + (lam * H_pp * eye3 + 1e-6 * eye3), eye3))
+
+        def Hcp_apply(vp, Jc=Jc, Jp=Jp, w=w):  # (NL, 3) -> (NP, 6)
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jp, tile(vp, S)[pi]))
+            return psum_seg(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg, NP)
+
+        def Hpc_apply(vc, Jc=Jc, Jp=Jp, w=w):  # (NP, 6) -> (NL, 3)
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, tile(vc, S)[ci]))
+            return psum_seg(torch.einsum("kdi,kd->ki", Jp, WJv), pi_seg, NL)
+
+        b_s = (-g_c + Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, g_p))) * free_c[:, None]
+        lam_D = lam * D_c * eye6
+
+        def schur_hvp(v, Jc=Jc, w=w, lam_D=lam_D, H_pp_inv=H_pp_inv, Hcp_apply=Hcp_apply, Hpc_apply=Hpc_apply):
+            vc = v[0] * free_c[:, None]
+            WJv = torch.einsum("kde,ke->kd", w, torch.einsum("kdi,ki->kd", Jc, tile(vc, S)[ci]))
+            hcc = psum_seg(torch.einsum("kdi,kd->ki", Jc, WJv), ci_seg, NP) + torch.einsum("kij,kj->ki", lam_D, vc)
+            out = hcc - Hcp_apply(torch.einsum("kij,kj->ki", H_pp_inv, Hpc_apply(vc)))
+            return (out * free_c[:, None] + (1.0 - free_c)[:, None] * v[0],)
+
+        D_inv = _inv(torch.where(free_c[:, None, None] > 0, D_c + lam_D + 1e-6 * eye6, eye6))
+
+        def precond(r, D_inv=D_inv):
+            return (torch.einsum("kij,kj->ki", D_inv, r[0]),)
+
+        (dc,), _, _ = pcg(schur_hvp, (b_s,), precond, max_iters=cg_iters, rtol=1e-8)
+        dc = dc * free_c[:, None]
+        dp = torch.einsum("kij,kj->ki", H_pp_inv, -g_p - Hpc_apply(dc)) * free_p[:, None]
+        new_poses = _T_to_pose7(_pose7_to_T(poses) @ lie.se3_exp(dc))
+        new_points = points + dp
+        new_chi2 = local_lin(new_poses, new_points, False)[4]
+        accept = new_chi2 < chi2
+        poses = torch.where(accept, new_poses, poses)
+        points = torch.where(accept, new_points, points)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+    return ba._replace(poses=poses.to(ba.poses.device), points=points.to(ba.poses.device)), torch.stack(trace)
+
+
+def optimize_se2_partitioned(
+    g: PoseGraph2D,
+    mesh,
+    iters: int = 10,
+    cg_iters: int = 100,
+    lm_lambda0: float = 1e-4,
+    halo_mode: str = "auto",
+    precond: str = "jacobi",
+):
+    """LM over a pose-block partition; returns (graph, chi2_trace, stats).
+
+    Convergence matches `optimize_se2` up to reduction order; state, edges,
+    diagonal blocks and CG vectors are sharded.
+
+    precond: "jacobi" (trajectory-identical to the single-device solver) or
+    "chain": each shard cyclic-reduction-factors ITS OWN block's
+    odometry-chain tridiagonal with no extra communication; boundary chain
+    edges stay unpreconditioned.
+    """
+    if precond not in PRECONDITIONERS_SE2:
+        raise ValueError(f"precond must be one of {PRECONDITIONERS_SE2}, got {precond!r}")
+    part = partition_se2(g, mesh.size, halo_mode=halo_mode)
+    sh = _Shards2D(part, mesh)
+    free_p, free_l = sh.free_p[..., None], sh.free_l[..., None]
+
+    def chi2_of(pb, lb):
+        return sh.chi2(pg.linearize_se2(sh.graph(pb, lb)))
+
+    seg = pg.edge_segments(sh.graph0)
+    pb, lb = sh.poses0, sh.lms0
+    trace = [chi2_of(pb, lb)]
+    lam = torch.tensor(lm_lambda0, dtype=pb.dtype, device=pb.device)
+    cg_total = 0
+    for _ in range(iters):
+        gk = sh.graph(pb, lb)
+        lin = pg.linearize_se2(gk)
+        chi2 = sh.chi2(lin)
+        gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
+        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
+
+        def hvp(v, edge_hvp=edge_hvp, Dp=Dp, Dl=Dl, lam=lam):
+            vp, vl = v[0] * free_p, v[1] * free_l
+            hp, hl = sh.reduce(*edge_hvp((sh.halo.gather_aug(vp).flatten(0, 1),
+                                          sh.halo_l.gather_aug(vl).flatten(0, 1))))
+            hp = hp + lam * _bmv(Dp, vp)
+            hl = hl + lam * _bmv(Dl, vl)
+            return hp * free_p + (1.0 - free_p) * v[0], hl * free_l + (1.0 - free_l) * v[1]
+
+        Dl_inv = ppg._damped_inverse(Dl, lam, sh.free_l)
+        if precond == "chain":
+            # per-shard block-local chain tridiagonal: factored with cyclic
+            # reduction, applied shard-locally, no communication
+            L_pre, U_pre = sh.chain_blocks(lin)
+            Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
+            fac = cr_factor(L_pre, Dp_d, U_pre)
+
+            def pre(r, fac=fac, Dl_inv=Dl_inv):
+                return cr_solve(fac, r[0]), _bmv(Dl_inv, r[1])
+        else:
+            Dp_inv = ppg._damped_inverse(Dp, lam, sh.free_p)
+
+            def pre(r, Dp_inv=Dp_inv, Dl_inv=Dl_inv):
+                return _bmv(Dp_inv, r[0]), _bmv(Dl_inv, r[1])
+
+        (dp, dl), cg_k, _ = pcg(hvp, (-gp * free_p, -gl * free_l), pre, max_iters=cg_iters, rtol=1e-8,
+                                tree_dot=sh.dot)
+        new_pb = pb + dp * free_p
+        new_pb = torch.cat([new_pb[..., :2], lie.wrap_angle(new_pb[..., 2:])], -1)
+        new_lb = lb + dl * free_l
+        new_chi2 = chi2_of(new_pb, new_lb)
+        accept = new_chi2 < chi2
+        pb = torch.where(accept, new_pb, pb)
+        lb = torch.where(accept, new_lb, lb)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+        cg_total += cg_k
+    g_out = g.with_poses(sh.blocks_of(pb, g.poses), sh.lms_of(lb, g.landmarks))
+    stats = {"partition": partition_stats(part), "comm": comm_volume(part, iters, cg_total), "cg_total": cg_total}
+    return g_out, torch.stack(trace), stats
+
+
+def optimize_se3_partitioned(
+    g: PoseGraph3D,
+    mesh,
+    iters: int = 10,
+    cg_iters: int = 100,
+    lm_lambda0: float = 1e-4,
+    precond: str = "jacobi",
+):
+    """SE3 twin of `optimize_se2_partitioned`: pose blocks + ghost halos;
+    returns (graph, chi2_trace).
+
+    precond: "jacobi" (block-diagonal) or "spike": each shard
+    cyclic-reduction-factors its local 6x6 block tridiagonal and the
+    boundary couplings form the replicated SPIKE interface system
+    (`spike.py`), the distributed form of the single-device chain
+    preconditioner.
+    """
+    if precond not in PRECONDITIONERS_SE3:
+        raise ValueError(f"precond must be one of {PRECONDITIONERS_SE3}, got {precond!r}")
+    part = partition_se3(g, mesh.size)
+    sh = _Shards(part, mesh, free_next=True)
+    loc, S, B, P = mesh.local, sh.S, sh.B, sh.B + sh.G
+    dev = sh.poses0.device
+    graph0 = PoseGraph3D(sh.poses0.new_zeros((S * P, 7)), torch.ones(S * P, dtype=torch.bool, device=dev),
+                         offset_pairs(sh.pp_ij, P, P, mesh=mesh), loc(part.pp_meas).flatten(0, 1),
+                         loc(part.pp_info).flatten(0, 1), loc(part.pp_mask).flatten(0, 1),
+                         torch.zeros(S * P, dtype=torch.bool, device=dev))
+    I, J = sh.pp_ij[..., 0], sh.pp_ij[..., 1]
+    I_flat, J_flat = graph0.pp_ij[:, 0], graph0.pp_ij[:, 1]
+    I_seg, J_seg = sh.segments(I, P), sh.segments(J, P)
+    free_p = sh.free_p[..., None]
+
+    def linearize(pb):
+        return pg.linearize_se3(graph0.with_poses(sh.halo.gather_aug(pb).flatten(0, 1)))
+
+    def reduce(a, b):
+        """Per-edge terms at both endpoints -> own (S, B, ...) blocks."""
+        return sh.halo.reduce(sh.segment_sum(a, I_seg) + sh.segment_sum(b, J_seg))
+
+    pb = sh.poses0
+    trace = [sh.chi2(linearize(pb))]
+    lam = torch.tensor(lm_lambda0, dtype=pb.dtype, device=dev)
+    for _ in range(iters):
+        lin = linearize(pb)
+        chi2 = sh.chi2(lin)
+        we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
+        gp = reduce(torch.einsum("kdi,kd->ki", lin.Ji_pp, we), torch.einsum("kdi,kd->ki", lin.Jj_pp, we))
+        Dp = reduce(pg._jtwj(lin.Ji_pp, lin.w_pp, lin.Ji_pp), pg._jtwj(lin.Jj_pp, lin.w_pp, lin.Jj_pp))
+
+        def hvp(v, lin=lin, Dp=Dp, lam=lam):
+            vp = v[0] * free_p
+            va = sh.halo.gather_aug(vp).flatten(0, 1)
+            Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, va[I_flat]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, va[J_flat])
+            WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
+            hp = reduce(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv))
+            hp = hp + lam * _bmv(Dp, vp)
+            return (hp * free_p + (1.0 - free_p) * v[0],)
+
+        Dp_d = pg._damped(Dp.flatten(0, 1), lam, sh.free_p.flatten()).view(Dp.shape)
+        if precond == "spike":
+            L_pre, U_pre = sh.chain_blocks(lin)
+            sf = spike_factor(L_pre, Dp_d, U_pre, sh.boundary_block(lin), mesh)
+
+            def pre(r, sf=sf):
+                return (spike_solve(sf, r[0], mesh),)
+        else:
+            Dp_inv = pg._inv(Dp_d)
+
+            def pre(r, Dp_inv=Dp_inv):
+                return (_bmv(Dp_inv, r[0]),)
+
+        (dp,), _, _ = pcg(hvp, (-gp * free_p,), pre, max_iters=cg_iters, rtol=1e-8, tree_dot=sh.dot)
+        new_pb = pg._T_to_pose7(pg._pose7_to_T(pb) @ lie.se3_exp(dp * free_p))
+        new_chi2 = sh.chi2(linearize(new_pb))
+        accept = new_chi2 < chi2
+        pb = torch.where(accept, new_pb, pb)
+        lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-10), torch.clamp_max(lam * 4.0, 1e8))
+        trace.append(torch.where(accept, new_chi2, chi2))
+    return g.with_poses(sh.blocks_of(pb, g.poses)), torch.stack(trace)
+
+
+def optimize_se2_schur_partitioned(
+    g: PoseGraph2D,
+    mesh,
+    iters: int = 100,
+    cg_iters: int = 50,
+    lm_lambda0: float = 1e-6,
+    huber_delta: float | None = None,
+    tol: float = 1e-9,
+    cg_rtol: float = 1e-6,
+    halo_mode: str = "auto",
+):
+    """LM to convergence on the landmark-eliminated system, fully sharded.
+
+    Returns (graph, chi2_trace, stats). chi2_trace[-1] is the converged
+    value; stats carries partition and communication accounting, the
+    extra replicated psum floats this solver adds over the block-Jacobi
+    one, and the LM iterations run.
+    """
+    NL = int(g.landmarks.shape[0])
+    if NL > MAX_LANDMARKS:
+        raise ValueError(f"optimize_se2_schur_partitioned replicates a ({2 * NL})^2 Woodbury arrow; NL > "
+                         f"{MAX_LANDMARKS} is out of its regime — use parallel.partitioned_pose_graph (block-Jacobi)")
+    n_dev = mesh.size
+    part = partition_se2(g, n_dev, halo_mode=halo_mode)
+    sh = _Shards2D(part, mesh, free_next=True)
+    S, B, BL, GL = sh.S, sh.B, sh.BL, sh.GL
+    has_pl = NL > 0
+    dev, dtype = sh.poses0.device, sh.poses0.dtype
+    free_p, free_l = sh.free_p[..., None], sh.free_l[..., None]
+    # replicated landmark validity (identity rows of the global arrow A)
+    lm_free = g.landmark_mask.to(device=dev, dtype=dtype)
+    pose_k = sh.pl_ij[..., 0]  # always own slots (< B) by construction
+    lm_k = sh.pl_ij[..., 1]  # own or ghost landmark slots
+    gid_k = torch.gather(sh.lm_gid, 1, lm_k)  # global landmark column ids
+    # the same as rows of the flattened (S * B) and (S * (BL + GL)) blocks
+    pose_k_flat, lm_k_flat = mesh.flat_index(pose_k, B), mesh.flat_index(lm_k, BL + GL)
+    # every sum's index sorted once a solve
+    seg = pg.edge_segments(sh.graph0)
+    pose_seg, lm_seg = sh.segments(pose_k, B), sh.segments(lm_k, BL + GL)
+    arrow_seg, owner_seg = sh.segments(pose_k * NL + gid_k, B * NL), sh.segments(sh.lm_gid[:, :BL], NL)
+
+    def chi2_of(pb, lb):
+        return sh.chi2(pg.linearize_se2(sh.graph(pb, lb), huber_delta))
+
+    def build_system(gk, lin, lam):
+        """The distributed `schur_pcg.build_schur_system`."""
+        gp, gl = sh.reduce(*pg._grad_se2(gk, lin, seg))
+        Dp, Dl = sh.reduce(*pg._diag_blocks_se2(gk, lin, seg))
+        bp = -gp * free_p
+        edge_hvp = pg._hvp_edges_se2(gk, lin, seg)
+        diagDp = torch.diagonal(Dp, dim1=-2, dim2=-1)
+        zeros_l = gk.landmarks.new_zeros(gk.landmarks.shape)
+        if has_pl:
+            C = pg._jtwj(lin.Jp_pl, lin.w_pl, lin.Jl_pl)  # (S * EL, 3, 2)
+            Hll_inv = pg._inv(_damped_or_eye(Dl, lam, sh.free_l, 2))
+            ybl = _bmv(Hll_inv, -gl * free_l)
+            ybl_aug = sh.halo_l.gather_aug(ybl).flatten(0, 1)
+            bs = bp - free_p * sh.segment_sum(torch.einsum("kij,kj->ki", C, ybl_aug[lm_k_flat]), pose_seg)
+
+        def to_landmarks(vp):
+            """Own landmark blocks of sum_k C_k^T vp[pose_k]."""
+            t = sh.segment_sum(torch.einsum("kji,kj->ki", C, vp.flatten(0, 1)[pose_k_flat]), lm_seg)
+            return sh.halo_l.reduce(t)
+
+        def smv(v):
+            vp = v[0] * free_p
+            hp_aug, _ = edge_hvp((sh.halo.gather_aug(vp).flatten(0, 1), zeros_l))
+            hp = sh.halo.reduce(hp_aug.view(S, -1, 3)) + lam * diagDp * vp
+            if has_pl:
+                y_aug = sh.halo_l.gather_aug(_bmv(Hll_inv, to_landmarks(vp))).flatten(0, 1)
+                hp = hp - sh.segment_sum(torch.einsum("kij,kj->ki", C, y_aug[lm_k_flat]), pose_seg)
+            return (hp * free_p + (1.0 - free_p) * v[0],)
+
+        # the distributed chain + Woodbury-arrow preconditioner
+        L_pre, U_pre = sh.chain_blocks(lin)
+        sf = spike_factor(L_pre, _damped_or_eye(Dp, lam, sh.free_p, 3), U_pre, sh.boundary_block(lin), mesh)
+        if has_pl:
+            # dense V rows of OWN poses: (S, B, 3, 2 NL), global landmark columns
+            Vd = sh.segment_sum(C.reshape(-1, 6), arrow_seg).view(S, B, NL, 3, 2)
+            Vd = Vd.permute(0, 1, 3, 2, 4).reshape(S, B, 3, 2 * NL) * free_p[..., None]
+            X = spike_solve(sf, Vd, mesh)  # distributed T^-1 V
+            # the global arrow's diagonal: the owners' damped blocks on free
+            # rows, psum'd, and identity on invalid rows (added replicated)
+            contrib = torch.where(free_l[..., None] > 0, _damped_or_eye(Dl, lam, sh.free_l, 2), 0.0)
+            A_diag = mesh.psum(sh.segment_sum(contrib.flatten(0, 1), owner_seg))[0]
+            A_diag = A_diag + (1.0 - lm_free)[:, None, None] * torch.eye(2, dtype=dtype, device=dev)
+            ar = torch.arange(NL, device=dev)
+            A = A_diag.new_zeros((NL, 2, NL, 2))
+            A[ar, :, ar, :] = A_diag
+            V2, X2 = Vd.reshape(S, 3 * B, 2 * NL), X.reshape(S, 3 * B, 2 * NL)
+            K = A.reshape(2 * NL, 2 * NL) - mesh.psum(V2.transpose(1, 2) @ X2)[0]
+            K_lu, K_piv, _ = torch.linalg.lu_factor_ex(K)
+
+            def precond(r):
+                z = spike_solve(sf, r[0], mesh)
+                w = mesh.psum((z.reshape(S, 1, 3 * B) @ V2)[:, 0])[0]
+                u = torch.linalg.lu_solve(K_lu, K_piv, w[:, None])
+                return (z + (X2 @ u).view(S, B, 3),)
+
+        else:
+
+            def precond(r):
+                return (spike_solve(sf, r[0], mesh),)
+
+        def recover_dl(dp):
+            if not has_pl:
+                return sh.lms0.new_zeros((S, BL, 2))
+            return (ybl - _bmv(Hll_inv, to_landmarks(dp))) * free_l
+
+        return smv, precond, (bs if has_pl else bp), recover_dl
+
+    pb, lb = sh.poses0, sh.lms0
+    trace = [chi2_of(pb, lb)]
+    lam = torch.tensor(lm_lambda0, dtype=dtype, device=dev)
+    nu = torch.full_like(lam, 2.0)
+    cg_total = k = 0
+    while k < iters:
+        gk = sh.graph(pb, lb)
+        lin = pg.linearize_se2(gk, huber_delta)
+        chi2 = sh.chi2(lin)
+        smv, precond, bs, recover_dl = build_system(gk, lin, lam)
+        (dp,), cg_k, _ = pcg(smv, (bs,), precond, max_iters=cg_iters, rtol=cg_rtol, tree_dot=sh.dot)
+        dp = dp * free_p
+        dl = recover_dl(dp)
+        new_pb = pb + dp
+        new_pb = torch.cat([new_pb[..., :2], lie.wrap_angle(new_pb[..., 2:])], -1)
+        new_lb = lb + dl
+        new_chi2 = chi2_of(new_pb, new_lb)
+        accept = torch.isfinite(new_chi2) & (new_chi2 < chi2)
+        rel_drop = (chi2 - new_chi2) / torch.clamp_min(chi2, 1e-30)
+        done = (accept & (rel_drop < tol)) | (~accept & (lam >= 1e10))
+        lam = torch.where(accept, torch.clamp_min(lam / 3.0, 1e-12), torch.clamp_max(lam * nu, 1e10))
+        nu = torch.where(accept, 2.0, torch.clamp_max(nu * 2.0, 64.0))
+        pb = torch.where(accept, new_pb, pb)
+        lb = torch.where(accept, new_lb, lb)
+        trace.append(torch.where(accept, new_chi2, chi2))
+        cg_total += cg_k
+        k += 1
+        if bool(done):  # a replicated flag: every shard leaves at the same iteration
+            break
+    trace += [trace[-1]] * (iters + 1 - len(trace))
+
+    g_out = g.with_poses(sh.blocks_of(pb, g.poses), sh.lms_of(lb, g.landmarks))
+    stats = {
+        "partition": partition_stats(part),
+        "comm": comm_volume(part, k, cg_total),
+        "cg_total": cg_total,
+        "lm_iters": k,
+        # replicated psum floats this solver adds beyond the halo bytes:
+        # per CG iter: interface rhs (2D*3) [precond] + arrow w (2NL);
+        # per LM iter: interface assembly (~(2D*3)^2), X interface rhs
+        # (2D*3*2NL), K psum ((2NL)^2), A_diag (4NL)
+        "spike_bytes_per_solve": spike_solve_bytes(n_dev, 3),
+        "replicated_psum_floats_per_cg_iter": 2 * n_dev * 3 + 2 * NL,
+        "replicated_psum_floats_per_lm_iter": (
+            (2 * n_dev * 3) ** 2 + 2 * n_dev * 3 * 2 * NL + (2 * NL) ** 2 + 4 * NL
+        ),
+    }
+    return g_out, torch.stack(trace), stats

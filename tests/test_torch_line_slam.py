@@ -14,9 +14,10 @@ package, on the CPU.
   observation counts equal, poses within 1e-3 m and lines within 1e-3
   after `merge_landmarks` and `optimize`, also with a solve every 4 frames;
   the JAX test's gates on the port alone;
-- the open fault of ROADMAP.md section 3: `LineSlam2D` over 180 scans of the
-  452-scan world with its graph at exact counts against padded as the JAX
-  package pads it, in lockstep: equal through the 8th solve, then parting;
+- ROADMAP.md section 3's record (not a fault): `LineSlam2D` over 180 scans
+  of the 452-scan world with its graph at exact counts against padded as
+  the JAX package pads it, in lockstep: equal through the 8th solve, then
+  parting;
 - `transform_line` / `line_observation` round trip (tests/test_line_slam.py
   :91).
 """
@@ -168,16 +169,17 @@ def test_line_slam_config_carries_extractor():
 
 
 def test_line_slam_padded_graph_parts_from_exact_counts(monkeypatch):
-    """An open fault on record (ROADMAP.md section 3): `LineSlam2D.optimize`
-    solves its graph at exact counts because, padded to the JAX package's
-    capacities (`make_line_graph`), the float32 sums round otherwise and the
-    run ends elsewhere. Over the first 180 scans of the 452-scan laser world
+    """Not a fault, on record (ROADMAP.md section 3, and
+    tests/test_torch_line_slam_lockstep.py against the JAX package):
+    `LineSlam2D.optimize` solves its graph at exact counts because, padded
+    to the JAX package's capacities (`make_line_graph`), the float32 sums
+    round otherwise and the run ends elsewhere. Over the first 180 scans of the 452-scan laser world
     the two runs, in lockstep, agree through the 8th solve (scan 119: the
     same lines, poses within 3e-3 m); the 9th (scans 120-134) moves them
     apart by centimetres, and after `merge_landmarks` and the last solve the
     line counts part by more than 5% (157 at exact counts, 141 padded, on
-    one thread) with the same observations. When the two runs stop parting,
-    the fault is closed and `LineSlam2D` can take the padded graph."""
+    one thread) with the same observations: amplified rounding, which keeps
+    the card's padded run outside `chip_smoke.LINE_BAND`."""
     from g2o_frontend_tpu_torch.slam.simulator import LaserWorldConfig, simulate_laser_world
 
     world = simulate_laser_world(LaserWorldConfig(n_poses=180, n_beams=360, room=12.0, max_range=16.0,

@@ -34,10 +34,21 @@ timed against the eager bodies.
    8, 16 and 32 on the Schur and the pose-only chain solve; then each
    solver graphed against eager in turns (`solve_turns`).
 
+4. Grid SLAM's stages (`--grid` runs them alone): `check_grid_stages`
+   (`build_likelihood_map`, `correlative_match`, `correlative_match_multires`
+   at the match and the loop-closure radius, `gradient_refine`, each over
+   three calls against its eager body), then each graph against eager in
+   turns at grid SLAM's 800 x 800 map (`grid_timing`).
+5. The distributed solvers (`--parallel` runs them alone): `check_solvers`
+   on `parallel_cases` (the six solvers and their preconditioners on
+   `StackedMesh(8)`), each graphed against eager in turns, then
+   `nccl_capture`: the same solvers on a `ProcessMesh` over NCCL at world
+   size 1, three calls each against the eager mode.
+
 One JSON line per measurement. Run from the repository root on a machine
 with a CUDA card (the kernels are built from the checkout):
 
-    python3 tools/graph_probe.py [--no-timing] [--solvers]
+    python3 tools/graph_probe.py [--no-timing] [--solvers | --grid | --parallel]
 """
 import argparse
 import json
@@ -392,13 +403,123 @@ def check_landmark_stages(device):
     return list(cases)
 
 
+# -- grid SLAM's matching (laser/scan_matcher, matcher_refine) and the distributed solvers (parallel/) ----------
+
+def grid_stage_cases(device, n_points=360, seed=0, cells=400):
+    """name -> (a call of one of grid SLAM's stages, the same call of its
+    eager body) on a simulated room scan matched into a `cells` x `cells`
+    map at 0.05 m (grid SLAM's is 800 x 800), the scan padded to its
+    power-of-two bucket as `slam.grid_slam` pads it (`gradient_refine`
+    takes it unpadded)."""
+    from g2o_frontend_tpu_torch.laser import matcher_refine as mr
+    from g2o_frontend_tpu_torch.laser import scan_matcher as sm
+    from g2o_frontend_tpu_torch.slam.grid_slam import _pad_pow2_pts
+
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(-np.pi, np.pi, n_points, endpoint=False).astype(np.float32)
+    ranges = (4.0 / np.maximum(np.abs(np.cos(angles)), np.abs(np.sin(angles)))
+              + rng.normal(0, 0.01, n_points)).astype(np.float32)
+    pts = np.stack([ranges * np.cos(angles), ranges * np.sin(angles)], -1)
+    spec = sm.GridSpec(rows=cells, cols=cells, resolution=0.05, origin_x=-0.025 * cells, origin_y=-0.025 * cells)
+    pad, n = _pad_pow2_pts(pts, min_cap=1024)
+    map_pts, map_valid = torch.as_tensor(pad, device=device), torch.arange(len(pad), device=device) < n
+    m = sm._build_likelihood_map(map_pts, map_valid, spec, 1.5)
+    c, s_ = np.cos(0.03), np.sin(0.03)
+    scan = (pts @ np.array([[c, -s_], [s_, c]], np.float32).T + np.array([0.12, -0.07], np.float32)).astype(np.float32)
+    spad, sn = _pad_pow2_pts(scan)
+    sp_, sv = torch.as_tensor(spad, device=device), torch.arange(len(spad), device=device) < sn
+    thetas = torch.as_tensor(np.deg2rad(np.arange(-10, 11, 1.0)).astype(np.float32) - 0.03, device=device)
+    prior = torch.as_tensor(np.array([-0.1, 0.05], np.float32), device=device)
+    raw, raw_valid = torch.as_tensor(scan, device=device), torch.ones(len(scan), dtype=torch.bool, device=device)
+    pose0 = torch.as_tensor(np.array([-0.1, 0.06, -0.02], np.float32), device=device)
+    return {
+        "build_likelihood_map": (lambda: sm.build_likelihood_map(map_pts, map_valid, spec, 1.5),
+                                 lambda: sm._build_likelihood_map(map_pts, map_valid, spec, 1.5)),
+        "correlative_match": (lambda: sm.correlative_match(m, sp_, sv, spec, thetas, 12, prior),
+                              lambda: sm._correlative_match(m, sp_, sv, spec, thetas, 12, prior)),
+        "correlative_match_multires": (lambda: sm.correlative_match_multires(m, sp_, sv, spec, thetas, 30, prior),
+                                       lambda: sm._correlative_match_multires(m, sp_, sv, spec, thetas, 30, prior, 4)),
+        "correlative_match_multires, the loop radius": (
+            lambda: sm.correlative_match_multires(m, sp_, sv, spec, thetas, 80, prior),
+            lambda: sm._correlative_match_multires(m, sp_, sv, spec, thetas, 80, prior, 4)),
+        "gradient_refine": (lambda: mr.gradient_refine(m, raw, raw_valid, spec, pose0, steps=3),
+                            lambda: mr._gradient_refine(m, raw, raw_valid, spec, pose0, 3, 0.05)),
+    }
+
+
+def check_grid_stages(device):
+    """Each of grid SLAM's stages bit-equal to its eager body over three
+    calls (its capture, at the first call or, for `gradient_refine`, the
+    second, then replays) and in "eager" mode. Returns the names checked."""
+    cases = grid_stage_cases(device)
+    for name, (stage, body) in cases.items():
+        want = leaves(body())
+        for i, got in enumerate((stage(), stage(), stage())):
+            check(same_bits(leaves(got), want), f"{name}: graphed call {i + 1} differs from its eager body")
+        with graphs.mode("eager"):
+            check(same_bits(leaves(stage()), want), f"{name}: the eager mode differs from its eager body")
+    return list(cases)
+
+
+# name -> (module of g2o_frontend_tpu_torch.parallel, function, world, caps) at test size
+PARALLEL = {
+    "optimize_se2_sharded": ("sharded_pose_graph", "optimize_se2_sharded", "landmarks", dict(iters=3, cg_iters=40)),
+    "optimize_se3_sharded": ("sharded_pose_graph3d", "optimize_se3_sharded", "se3", dict(iters=3, cg_iters=40)),
+    "optimize_ba_sharded": ("sharded_ba", "optimize_ba_sharded", "ba", dict(iters=4, cg_iters=30)),
+    "optimize_se2_partitioned jacobi": ("partitioned_pose_graph", "optimize_se2_partitioned", "landmarks",
+                                        dict(iters=3, cg_iters=40, precond="jacobi")),
+    "optimize_se2_partitioned chain": ("partitioned_pose_graph", "optimize_se2_partitioned", "landmarks",
+                                       dict(iters=3, cg_iters=60, precond="chain")),
+    "optimize_se3_partitioned jacobi": ("partitioned_pose_graph", "optimize_se3_partitioned", "se3",
+                                        dict(iters=3, cg_iters=40, precond="jacobi")),
+    "optimize_se3_partitioned spike": ("partitioned_pose_graph", "optimize_se3_partitioned", "se3",
+                                       dict(iters=3, cg_iters=40, precond="spike")),
+    "optimize_se2_schur_partitioned": ("partitioned_schur", "optimize_se2_schur_partitioned", "landmarks",
+                                       dict(iters=8, cg_iters=40, lm_lambda0=1e-3)),
+    "optimize_se2_schur_partitioned, pose only": ("partitioned_schur", "optimize_se2_schur_partitioned",
+                                                  "pose_only", dict(iters=8, cg_iters=40, lm_lambda0=1e-3)),
+}
+
+
+def parallel_worlds(device):
+    """`solver_worlds`' small graphs and a 10-pose, 80-point BA problem."""
+    import chip_smoke
+    from g2o_frontend_tpu_torch.solvers import ba as tba
+
+    w = solver_worlds(device)
+    _, _, poses7, points, obs = chip_smoke.ba_world(n_poses=10, n_points=80, per_point=4, seed=3)
+    w["ba"] = tba.make_ba_problem(poses7, points, obs, device=device)
+    return w
+
+
+def parallel_cases(device, n_dev=8, worlds=None, function=None):
+    """name -> a call of one distributed solver (`PARALLEL`) on a
+    `StackedMesh(n_dev)` on `device`; `function(name)` gives the function
+    to call in the module's stead (a test's copy of the loop before it
+    ran through `solve_loop`)."""
+    import importlib
+
+    from g2o_frontend_tpu_torch.parallel.mesh import StackedMesh
+
+    w = parallel_worlds(device) if worlds is None else worlds
+    cases = {}
+    for name, (mod, fn, world, caps) in PARALLEL.items():
+        f = (getattr(importlib.import_module(f"g2o_frontend_tpu_torch.parallel.{mod}"), fn) if function is None
+             else function(fn))
+        cases[name] = lambda f=f, world=world, caps=caps: f(w[world], StackedMesh(n_dev, device), **caps)
+    return cases
+
+
 def solver_leaves(out):
     """The tensors and counts of a solver's result, for `same_bits`."""
     if torch.is_tensor(out):
         return [out]
+    if len(out) == 3:  # a partitioned solver's (graph, chi2 trace, stats)
+        gk, trace, stats = out
+        return solver_leaves((gk, trace)) + [torch.tensor([stats["cg_total"], stats.get("lm_iters", 0)])]
     gk, st = out
-    if torch.is_tensor(st):  # a landmark solver's (graph, chi2 trace)
-        return [t for t in gk if torch.is_tensor(t)] + [st]
+    if torch.is_tensor(st):  # a landmark or distributed solver's (graph, chi2 trace)
+        return graphs.flatten(gk)[1] + [st]
     rest = [gk.landmarks] if hasattr(gk, "landmarks") else []
     counts = [torch.tensor([v]) for v in st if isinstance(v, int)]
     return [gk.poses] + rest + [t for t in st if torch.is_tensor(t)] + counts
@@ -562,11 +683,62 @@ def timing(device, n=20):
     return rows
 
 
+def nccl_capture(device):
+    """Every `PARALLEL` solver on a `ProcessMesh` over NCCL at world size 1
+    (this process the one rank), called three times: the key seen once,
+    the chain's capture, a replay; each against the solve in "eager"
+    mode. Returns {name: "bit-equal" or the error}: this is where a
+    capture that NCCL refuses shows."""
+    import importlib
+    import socket
+
+    import torch.distributed as dist
+
+    from g2o_frontend_tpu_torch.parallel.mesh import ProcessMesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=device)
+    out = {}
+    try:
+        w = parallel_worlds(device)
+        for name, (mod, fn, world, caps) in PARALLEL.items():
+            f = getattr(importlib.import_module(f"g2o_frontend_tpu_torch.parallel.{mod}"), fn)
+            pm = ProcessMesh(device)  # a key holds its mesh: one object, so that the second call captures the chain
+            try:
+                runs = [solver_leaves(f(w[world], pm, **caps)) for _ in range(3)]
+                with graphs.mode("eager"):
+                    eager = solver_leaves(f(w[world], pm, **caps))
+                out[name] = "bit-equal" if all(same_bits(r, eager) for r in runs) else "differs from the eager mode"
+            except Exception as exc:  # the probe reports a refused capture; the package raises it
+                out[name] = f"{type(exc).__name__}: {str(exc)[:400]}"
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def grid_timing(device, n=20):
+    """Each grid SLAM stage at grid SLAM's 800 x 800 map, graph against
+    eager (`turns`)."""
+    rows = []
+    for name, (stage, body) in grid_stage_cases(device, cells=800).items():
+        stage(), stage()  # captured (the refinement at its second call)
+        rows.append(turns(name, stage, body, n))
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-timing", action="store_true", help="run the checks only")
     ap.add_argument("--solvers", action="store_true", help="the solvers only: their checks on a small world and at "
                     "victoriaPark's counts, the failed capture, the block sweep, graph against eager in turns")
+    ap.add_argument("--grid", action="store_true", help="grid SLAM's stages only: their checks, then graph against "
+                    "eager in turns at 800 x 800")
+    ap.add_argument("--parallel", action="store_true", help="the distributed solvers only: their checks on "
+                    "StackedMesh(8), graph against eager in turns, then a ProcessMesh over NCCL at world size 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("graph_probe: no CUDA device", file=sys.stderr)
@@ -575,6 +747,8 @@ def main():
     print(smi, flush=True)
     device = torch.device("cuda:0")
     errors = []
+    if args.grid or args.parallel:
+        return probe_slices(device, args, smi, errors)
     if not args.solvers:
         for H, W in ((120, 160), (480, 640)):
             x = inputs(device, H, W)
@@ -611,6 +785,34 @@ def main():
         print(json.dumps({"capture": c.stage, "shapes": c.shapes[:4], "capture_ms": c.capture_ms,
                           "pool_bytes": c.pool_bytes, "input_bytes": c.input_bytes, "launches": c.launches,
                           "kept": c.kept}), flush=True)
+    print(smi, flush=True)
+    return 1 if errors else 0
+
+
+def probe_slices(device, args, smi, errors):
+    """`--grid` and `--parallel`: their checks, timings and captures."""
+    if args.grid:
+        try:
+            print(json.dumps({"grid stage checks": check_grid_stages(device)}), flush=True)
+        except (CheckFailure, RuntimeError) as exc:
+            errors.append(f"check_grid_stages: {type(exc).__name__}: {exc}")
+        if not args.no_timing:
+            for row in grid_timing(device):
+                print(json.dumps({**row, "gpu": smi}), flush=True)
+    if args.parallel:
+        cases = parallel_cases(device)
+        got = check_solvers(device, errors=errors, cases=cases)
+        print(json.dumps({"solver checks": "distributed, StackedMesh(8)", "launches and host reads (graph launches, "
+                          "eager launches, graph reads, eager reads)": got, "errors": errors}), flush=True)
+        if not args.no_timing:
+            for name, fn in cases.items():
+                print(json.dumps({**solve_turns(name, fn), "gpu": smi}), flush=True)
+        print(json.dumps({"ProcessMesh over NCCL, world size 1": nccl_capture(device)}), flush=True)
+    for c in graphs.captures():
+        print(json.dumps({"capture": c.stage, "shapes": c.shapes[:4], "capture_ms": c.capture_ms,
+                          "pool_bytes": c.pool_bytes, "input_bytes": c.input_bytes, "launches": c.launches,
+                          "kept": c.kept}), flush=True)
+    print(json.dumps({"errors": errors}), flush=True)
     print(smi, flush=True)
     return 1 if errors else 0
 
