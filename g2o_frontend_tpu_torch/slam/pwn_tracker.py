@@ -13,9 +13,17 @@
 
 The JAX tracker's band-coverage fallback is gone: the port's association is
 exact, so there is no banded window to fall back from.
+
+Spans (``utils/profiling.span``, recorded while a profiler session
+records): ``pwn_tracker.frame`` around each `PwnTracker.process_frame`
+(its request id the frame's number), ``odometry_scan`` around each call
+(its request id the call's number), ``host_read`` around each blocking
+read of a device value, ``upload`` around each copy of the caller's depth
+to the device.
 """
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -28,6 +36,7 @@ from ..pwn.aligner import AlignerConfig, _align, align
 from ..pwn.converter import ConverterConfig, _depth_to_cloud, depth_to_cloud
 from ..pwn.projector import PinholeProjector
 from ..utils import graphs
+from ..utils.profiling import span
 
 
 class CloudCache:
@@ -71,9 +80,10 @@ class PwnTrackerConfig:
 
 
 def _as_depth(depth, device):
-    if not torch.is_tensor(depth):
-        depth = torch.from_numpy(np.asarray(depth, np.float32))
-    return depth.to(device=device, dtype=torch.float32)
+    with span("upload"):
+        if not torch.is_tensor(depth):
+            depth = torch.from_numpy(np.asarray(depth, np.float32))
+        return depth.to(device=device, dtype=torch.float32)
 
 
 class PwnTracker:
@@ -109,6 +119,10 @@ class PwnTracker:
 
     def process_frame(self, depth, initial_guess=None):
         """Ingest one (H, W) depth image in meters; returns the frame metrics."""
+        with span("pwn_tracker.frame", self.frame_count):
+            return self._process_frame(depth, initial_guess)
+
+    def _process_frame(self, depth, initial_guess):
         cfg = self.cfg
         depth = _as_depth(depth, self.device)
         current = depth_to_cloud(depth, self.projector, self.ccfg)
@@ -133,8 +147,10 @@ class PwnTracker:
         if initial_guess is not None:
             guess = guess @ np.asarray(initial_guess)
         res = align(reference, current, self.projector, guess.astype(np.float32), self.acfg)
-        inliers = int(res.inliers)
-        T = res.T.cpu().numpy().astype(np.float64)
+        with span("host_read"):
+            inliers = int(res.inliers)
+        with span("host_read"):
+            T = res.T.cpu().numpy().astype(np.float64)
 
         fallback = inliers < max(1, cfg.min_cloud_inliers)
         if fallback:
@@ -153,7 +169,8 @@ class PwnTracker:
         if new_keyframe:
             self.cache.put(frame_key, depth)
             node = self.manager.add_node(self.global_T, payload={"frame": frame_key})
-            info = res.omega.cpu().numpy().astype(np.float64)
+            with span("host_read"):
+                info = res.omega.cpu().numpy().astype(np.float64)
             if fallback or not np.isfinite(info).all():
                 info = np.eye(6) * 100.0
             else:
@@ -175,12 +192,14 @@ class PwnTracker:
             self.prev_kf_T = self.global_T.copy()
             self.n_keyframes += 1
 
+        with span("host_read"):
+            chi2 = float(res.chi2)
         m = {
             "keyframe": bool(new_keyframe),
             "inliers": inliers,
             "fraction": float(fraction),
             "fallback": bool(fallback),
-            "chi2": float(res.chi2),
+            "chi2": chi2,
         }
         self.metrics.append(m)
         return m
@@ -195,9 +214,10 @@ def _depth_batch(depths, device, depth_scale):
     and widen on the device: torch's uint16 supports few operations."""
     if depth_scale is None:
         return _as_depth(depths, device)
-    raw = np.ascontiguousarray(depths, np.uint16).view(np.int16)
-    counts = torch.from_numpy(raw).to(device).to(torch.int32) & 0xFFFF
-    return counts.to(torch.float32) * depth_scale
+    with span("upload"):
+        raw = np.ascontiguousarray(depths, np.uint16).view(np.int16)
+        counts = torch.from_numpy(raw).to(device).to(torch.int32) & 0xFFFF
+        return counts.to(torch.float32) * depth_scale
 
 
 def odometry_scan(
@@ -226,11 +246,12 @@ def odometry_scan(
     inliers, fraction, keyframe, omega_trace), all fresh tensors, as the
     JAX function's outputs are fresh arrays.
     """
-    depths = _depth_batch(depths, torch.device(device), depth_scale)
-    eye = torch.eye(4, dtype=torch.float32, device=depths.device)
-    ref = depth_to_cloud(depths[0], projector, ccfg)
-    _, outs = _SCAN_STEP.scan((ref, eye, eye), depths[1:], projector, ccfg, acfg, kf_fraction, min_cloud_inliers)
-    return scan_outputs(eye, outs)
+    with span("odometry_scan", next(_SCAN_CALLS)):
+        depths = _depth_batch(depths, torch.device(device), depth_scale)
+        eye = torch.eye(4, dtype=torch.float32, device=depths.device)
+        ref = depth_to_cloud(depths[0], projector, ccfg)
+        _, outs = _SCAN_STEP.scan((ref, eye, eye), depths[1:], projector, ccfg, acfg, kf_fraction, min_cloud_inliers)
+        return scan_outputs(eye, outs)
 
 
 def _scan_step(carry, depth, projector, ccfg, acfg, kf_fraction, min_cloud_inliers):
@@ -270,3 +291,4 @@ def scan_outputs(first_pose, outs):
 
 
 _SCAN_STEP = graphs.Stage("odometry_scan step", _scan_step)
+_SCAN_CALLS = itertools.count()  # the request ids of `odometry_scan`'s spans

@@ -23,6 +23,7 @@ chain gives the Hessian an O(N^2) condition number.
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -30,6 +31,7 @@ import torch
 from ..graph.store import PoseGraph2D
 from ..ops import segment_sum as ss
 from ..utils import graphs, lie
+from ..utils.profiling import span
 from . import pose_graph as pg
 from .pcg import cg_carry, cg_loop
 from .tridiag import CRFactor, cr_factor, cr_solve
@@ -318,7 +320,16 @@ def optimize_se2_schur(
     `pcg.BLOCK` masked steps with the JAX stopping test on the device, and
     a tail (the step, accept / reject, lambda, the trace); on the card a
     graph each, one host read a CG block and one an LM iteration (the
-    convergence test with the counts)."""
+    convergence test with the counts). The whole call is the span
+    ``solve:optimize_se2_schur``, its request id the call's number."""
+    with span("solve:optimize_se2_schur", next(_SOLVES)):
+        return _optimize_se2_schur(g, iters, cg_iters, lm_lambda0, huber_delta, tol, cg_rtol, woodbury)
+
+
+_SOLVES = itertools.count()  # the request ids of `optimize_se2_schur`'s spans
+
+
+def _optimize_se2_schur(g, iters, cg_iters, lm_lambda0, huber_delta, tol, cg_rtol, woodbury):
     NP, NL = g.poses.shape[0], g.landmarks.shape[0]
     dtype = g.poses.dtype
     free_p = (g.pose_mask & ~g.fixed).to(dtype)

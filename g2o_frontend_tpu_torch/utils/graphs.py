@@ -79,6 +79,13 @@ backend's solvers (``solvers/pcg``, ``pose_graph``, ``schur_pcg``):
 `captures` lists every key and solve piece captured so far with its
 capture time and the bytes its capture added to the pool; `host_reads`
 counts the reads of loops and solves.
+
+Spans (``utils/profiling.span``, recorded while a profiler session
+records): ``stage:<name>`` around a stage's call on every path and around
+each step of its scan (copy-in, launch, clone-out); ``launch`` around each
+``CUDAGraph.replay()`` alone; ``capture:<name>`` around each capture;
+``host_read`` around each read that `host_reads` counts. `replay_ns` and
+`replays` time the replays always, until a profiler records one.
 """
 from __future__ import annotations
 
@@ -92,6 +99,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import fused_aligner, linearizer, segment_sum
+from .profiling import recording, span
 
 # the launch counters of the kernels the stages and loops run: (module, attribute)
 COUNTERS = (
@@ -112,13 +120,39 @@ host_reads = 0
 def _flag(t):
     global host_reads
     host_reads += 1
-    return bool(t)
+    with span("host_read"):
+        return bool(t)
 
 
 def _report(t):
     global host_reads
     host_reads += 1
-    return t.tolist()
+    with span("host_read"):
+        return t.tolist()
+
+
+# the host's ns in ``CUDAGraph.replay()`` and the replays timed: every
+# replay but a graph's first (which uploads it), until the first replay under
+# a profiler (from then on the profiler's cost lands in each replay, also
+# after its session: 5-8x the host time on an H100)
+replay_ns = 0
+replays = 0
+_profiled = False
+
+
+def _launch(graph, first):
+    """``graph.replay()`` in a ``launch`` span, its host time counted
+    unless `first` or a profiler has recorded a replay."""
+    global replay_ns, replays, _profiled
+    with span("launch"):
+        t = time.perf_counter_ns()
+        graph.replay()
+        t = time.perf_counter_ns() - t
+    if recording():
+        _profiled = True
+    elif not first and not _profiled:
+        replay_ns += t
+        replays += 1
 
 
 @contextmanager
@@ -294,13 +328,15 @@ class Graph:
         self.static_out = static_out
         self.out_desc = out_desc
         self.launches = launches  # per counter of COUNTERS, the launches one replay makes
+        self.replayed = False
 
     def replay(self, tensors, first=0):
         """Copy `tensors` into the static inputs from the `first` on, replay,
         count the captured launches, and return clones of the outputs."""
         for s, x in zip(self.static_in[first:], tensors):
             s.copy_(x)
-        self.graph.replay()
+        _launch(self.graph, not self.replayed)
+        self.replayed = True
         _set_counts([c + n for c, n in zip(_counts(), self.launches)])
         return _build(self.out_desc, iter([o.clone() for o in self.static_out]))
 
@@ -313,65 +349,73 @@ class Stage:
         self.name = name
         self.body = body
         self.second_call = second_call  # capture a key at its second call, not its first
+        self._span, self._capture_span = "stage:" + name, "capture:" + name
         self._graphs: dict = {}
         self._seen: set = set()
 
     def __call__(self, *args):
-        desc, tensors = key(*args)
-        device = _device(self.name, tensors)
-        if device.type != "cuda" or torch.cuda.is_current_stream_capturing() or _MODE[0] != "graph":
-            return self.body(*args)
-        graph = self._graphs.get(desc)
-        if graph is None:
-            if self.second_call and desc not in self._seen:
-                self._seen.add(desc)
+        with span(self._span):
+            desc, tensors = key(*args)
+            device = _device(self.name, tensors)
+            if device.type != "cuda" or torch.cuda.is_current_stream_capturing() or _MODE[0] != "graph":
                 return self.body(*args)
-            graph = self._graphs[desc] = self._capture(desc, tensors, device)
-        return graph.replay(tensors)
+            graph = self._graphs.get(desc)
+            if graph is None:
+                if self.second_call and desc not in self._seen:
+                    self._seen.add(desc)
+                    return self.body(*args)
+                graph = self._graphs[desc] = self._capture(desc, tensors, device)
+            return graph.replay(tensors)
+
+    def _step(self, *args):
+        """The body as one step of an eager scan, in its stage's span."""
+        with span(self._span):
+            return self.body(*args)
 
     def _capture(self, desc, tensors, device, scan=None):
         """Warm up and capture `body` on static copies of `tensors`. With
         `scan`, the number of carry tensors, the body is a scan step: its new
         carry is copied into the carry's static buffers as the graph's last
         operations, and only its outputs are returned."""
-        t0 = time.perf_counter()
-        static_in = [x.clone() for x in tensors]
-        args = _build(desc, iter(static_in))
-        before = _counts()
-        with torch.cuda.device(device):
-            pool_before = _pool_bytes(device) if device in _POOLS else 0
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.body(*args)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=_pool(device)):
-                    start = _counts()
-                    out = self.body(*args)
-                    if scan is not None:
-                        carry, out = out
-                        carry_now = key(carry)[1]
-                        for s, x in zip(static_in[: scan], carry_now):
-                            s.copy_(x)
-                    launches = [b - a for a, b in zip(start, _counts())]
-            except Exception as exc:
-                # the failed capture leaves its pool recording: later captures take a new one
-                _POOLS.pop(device, None)
-                raise CaptureError(f"CUDA graph capture of {self.name} failed at {_where(exc)}") from exc
-            finally:
-                _set_counts(before)
-            torch.cuda.synchronize()
-            out_desc, static_out = key(out)
-            out_desc = out_desc[1][0]  # key() wraps its arguments in a tuple
-            _CAPTURES.append(Capture(
-                stage=self.name, shapes=tuple(tuple(x.shape) for x in tensors),
-                capture_ms=(time.perf_counter() - t0) * 1e3, pool_bytes=_pool_bytes(device) - pool_before,
-                input_bytes=sum(x.numel() * x.element_size() for x in static_in),
-                launches={f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": n
-                          for (mod, attr), n in zip(COUNTERS, launches) if n}))
-        return Graph(graph, static_in, static_out, out_desc, launches)
+        with span(self._capture_span):
+            t0 = time.perf_counter()
+            static_in = [x.clone() for x in tensors]
+            args = _build(desc, iter(static_in))
+            before = _counts()
+            with torch.cuda.device(device):
+                pool_before = _pool_bytes(device) if device in _POOLS else 0
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self.body(*args)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=_pool(device)):
+                        start = _counts()
+                        out = self.body(*args)
+                        if scan is not None:
+                            carry, out = out
+                            carry_now = key(carry)[1]
+                            for s, x in zip(static_in[: scan], carry_now):
+                                s.copy_(x)
+                        launches = [b - a for a, b in zip(start, _counts())]
+                except Exception as exc:
+                    # the failed capture leaves its pool recording: later captures take a new one
+                    _POOLS.pop(device, None)
+                    raise CaptureError(f"CUDA graph capture of {self.name} failed at {_where(exc)}") from exc
+                finally:
+                    _set_counts(before)
+                torch.cuda.synchronize()
+                out_desc, static_out = key(out)
+                out_desc = out_desc[1][0]  # key() wraps its arguments in a tuple
+                _CAPTURES.append(Capture(
+                    stage=self.name, shapes=tuple(tuple(x.shape) for x in tensors),
+                    capture_ms=(time.perf_counter() - t0) * 1e3, pool_bytes=_pool_bytes(device) - pool_before,
+                    input_bytes=sum(x.numel() * x.element_size() for x in static_in),
+                    launches={f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": n
+                              for (mod, attr), n in zip(COUNTERS, launches) if n}))
+            return Graph(graph, static_in, static_out, out_desc, launches)
 
     def scan(self, carry, xs, *consts):
         """``lax.scan`` of the body ``(carry, x, *consts) -> (carry, out)``
@@ -385,14 +429,17 @@ class Stage:
         desc = ("scan", desc)  # a scan's graph returns the step's outputs only
         device = _device(self.name, tensors + [xs])
         if device.type != "cuda" or torch.cuda.is_current_stream_capturing() or _MODE[0] != "graph":
-            return iterate(self.body, carry, xs, *consts)
+            return iterate(self._step, carry, xs, *consts)
         n_carry = len(key(carry)[1])
         graph = self._graphs.get(desc)
         if graph is None:
             graph = self._graphs[desc] = self._capture(desc[1], tensors, device, scan=n_carry)
         for s, x in zip(graph.static_in, tensors):  # the carry, the first x and the constants
             s.copy_(x)
-        outs = [graph.replay([x], first=n_carry) for x in xs]
+        outs = []
+        for x in xs:
+            with span(self._span):
+                outs.append(graph.replay([x], first=n_carry))
         carry_desc = key(carry)[0][1][0]  # key() wraps its arguments in a tuple
         return _build(carry_desc, iter([s.clone() for s in graph.static_in[:n_carry]])), outs
 
@@ -476,9 +523,11 @@ class _Piece:
 
     def __init__(self, graph, out, launches):
         self.graph, self.out, self.launches = graph, out, launches
+        self.replayed = False
 
     def replay(self):
-        self.graph.replay()
+        _launch(self.graph, not self.replayed)
+        self.replayed = True
         _set_counts([c + n for c, n in zip(_counts(), self.launches)])
 
 
@@ -487,40 +536,41 @@ def _capture_piece(name, fn, device, reads, kept=True):
     (`fn` closes over static tensors; its warm-up ran before). Returns the
     `_Piece`; its launches are taken back from the counters. `reads` is
     the static tensors it reads, for the capture record."""
-    t0 = time.perf_counter()
-    before = _counts()
-    pool = _pool(device)
-    pool_before = _pool_bytes(device) if kept else 0
-    side = _side(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        graph.capture_begin(pool=pool)
-        try:
-            out = fn()
-            launches = [b - a for a, b in zip(before, _counts())]
-        except Exception as exc:
+    with span("capture:" + name):
+        t0 = time.perf_counter()
+        before = _counts()
+        pool = _pool(device)
+        pool_before = _pool_bytes(device) if kept else 0
+        side = _side(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool)
+            try:
+                out = fn()
+                launches = [b - a for a, b in zip(before, _counts())]
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except Exception:  # the capture is invalid already: the first error is the one to name
+                    pass
+                _POOLS.pop(device, None)
+                raise CaptureError(f"CUDA graph capture of {name} failed at {_where(exc)}") from exc
+            finally:
+                _set_counts(before)
             try:
                 graph.capture_end()
-            except Exception:  # the capture is invalid already: the first error is the one to name
-                pass
-            _POOLS.pop(device, None)
-            raise CaptureError(f"CUDA graph capture of {name} failed at {_where(exc)}") from exc
-        finally:
-            _set_counts(before)
-        try:
-            graph.capture_end()
-        except Exception as exc:
-            _POOLS.pop(device, None)
-            raise CaptureError(f"CUDA graph capture of {name} failed at {_where(exc)}") from exc
-    torch.cuda.current_stream(device).wait_stream(side)
-    _CAPTURES.append(Capture(
-        stage=name, shapes=tuple(tuple(x.shape) for x in reads), capture_ms=(time.perf_counter() - t0) * 1e3,
-        pool_bytes=_pool_bytes(device) - pool_before if kept else -1,
-        input_bytes=sum(x.numel() * x.element_size() for x in reads),
-        launches={f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": n for (mod, attr), n in zip(COUNTERS, launches) if n},
-        kept=kept))
-    return _Piece(graph, out, launches)
+            except Exception as exc:
+                _POOLS.pop(device, None)
+                raise CaptureError(f"CUDA graph capture of {name} failed at {_where(exc)}") from exc
+        torch.cuda.current_stream(device).wait_stream(side)
+        _CAPTURES.append(Capture(
+            stage=name, shapes=tuple(tuple(x.shape) for x in reads), capture_ms=(time.perf_counter() - t0) * 1e3,
+            pool_bytes=_pool_bytes(device) - pool_before if kept else -1,
+            input_bytes=sum(x.numel() * x.element_size() for x in reads),
+            launches={f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": n for (mod, attr), n in zip(COUNTERS, launches) if n},
+            kept=kept))
+        return _Piece(graph, out, launches)
 
 
 def _warm(device, fn):

@@ -11,9 +11,22 @@
   caller asked for the CPU, as JAX's CPU backend would be). `graph_ms`
   is the same in milliseconds per call of a function of no arguments;
   `in_turns` times two versions of a kernel that way in turns.
-- `trace`: ``torch.profiler`` around a block, writing a Chrome trace into a
-  directory (the JAX version's ``jax.profiler`` trace directory).
-- `CumulativeTimer`: cumTime/numCalls accumulator (PwnMatcherBase parity).
+- `span`: a named interval of the program's host time, recorded only while
+  a ``torch.profiler`` session records (``torch.autograd.profiler.
+  _is_profiler_enabled``, which torch sets for a session of any
+  activities); outside one a call costs that flag check and returns a
+  shared no-op. A span keeps its name, its start and end in ns on the
+  profiler's own host clock (``CLOCK_REALTIME``, `time.time_ns`, on which
+  kineto's events and `Span`s compare directly), the id of the span open
+  around it on its thread, and a request id (a frame, a scan call, a
+  solve) that its children inherit. Spans go to a buffer of at most
+  `SPAN_CAPACITY`; `spans` returns them, `clear_spans` empties it;
+  `recording` says whether a session records.
+- `trace`: ``torch.profiler`` around a block (CUDA activity where there is
+  a card, CPU activity where there is none: the CPU activity doubles a
+  live frame on the card), writing a Chrome trace into a directory (the
+  JAX version's ``jax.profiler`` trace directory) with the block's spans
+  as a host track on the trace's time base.
 - `event_ms`, `device_ms`: CUDA-only timers of `chip_smoke.py` for whole
   calls of the captured stages (``utils/graphs``: a `graph_ms` capture
   would run their eager bodies inline, not their own graphs): CUDA events
@@ -27,15 +40,23 @@
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
+import os
 import subprocess
+import threading
 import time
+from collections import deque
+from typing import NamedTuple
 
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile
 
 __all__ = [
-    "device_time", "graph_ms", "in_turns", "trace", "CumulativeTimer", "gpu_name_and_power_limit", "event_ms", "device_ms", "bound",
-    "CheckFailure", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "L2_BYTES",
+    "device_time", "graph_ms", "in_turns", "span", "spans", "clear_spans", "recording", "Span", "SPAN_CAPACITY",
+    "trace", "gpu_name_and_power_limit", "event_ms", "device_ms", "bound", "CheckFailure", "HBM_BYTES_PER_S",
+    "F32_OPS_PER_S", "L2_BYTES",
 ]
 
 # One H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32 operations/s
@@ -133,36 +154,138 @@ def in_turns(new, old, like, n: int = 20):
     return min(n1, n2), min(o1, o2)
 
 
+# -- spans ------------------------------------------------------------------------------
+
+SPAN_CAPACITY = 1 << 20
+
+
+class Span(NamedTuple):
+    """One recorded span. `id` numbers spans in the order they opened;
+    `parent` is the `id` of the span open around it on its thread (-1 at
+    the top); `request` is its own request id or its parent's (None where
+    no span up its stack gave one). Times are ns on the profiler's host
+    clock."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    request: object
+
+
+_SPANS: deque = deque(maxlen=SPAN_CAPACITY)
+_IDS = itertools.count()
+_OPEN = threading.local()
+
+
+class _Off:
+    """What `span` returns outside a profiler session: enters and exits."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, exc, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "request", "id", "parent", "start", "stack")
+
+    def __init__(self, name, request):
+        self.name, self.request = name, request
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        if stack:
+            top = stack[-1]
+            self.parent = top.id
+            if self.request is None:
+                self.request = top.request
+        else:
+            self.parent = -1
+        self.id = next(_IDS)
+        self.stack = stack
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, typ, exc, tb):
+        end = time.time_ns()
+        self.stack.pop()
+        _SPANS.append(Span(self.id, self.name, self.start, end, self.parent, self.request))
+        return False
+
+
+def span(name: str, request=None):
+    """``with span("launch"):`` records the block as a `Span` while a
+    ``torch.profiler`` session records; otherwise a shared no-op. `name`
+    should be a string made once (a constant, or one stored on its
+    object), so that the call allocates nothing when off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name, request)
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records now (spans record)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def spans() -> list[Span]:
+    """The recorded spans, in the order they closed (the last
+    `SPAN_CAPACITY`)."""
+    return list(_SPANS)
+
+
+def clear_spans():
+    _SPANS.clear()
+
+
+def _add_spans(path, recorded):
+    """Append `recorded` to the Chrome trace file at `path` as one host
+    track, on the file's time base (``ts`` in us from
+    ``baseTimeNanoseconds``)."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    base, pid, tid = doc.get("baseTimeNanoseconds", 0), os.getpid(), 0
+    events = doc.setdefault("traceEvents", [])
+    events.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid, "args": {"name": "program spans"}})
+    for s in recorded:
+        events.append({"name": s.name, "ph": "X", "cat": "span", "pid": pid, "tid": tid,
+                       "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"id": s.id, "parent": s.parent, "request": s.request}})
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """``with trace('/tmp/tb'):`` profile the block (CPU, and CUDA where
-    there is a card) into a Chrome trace file in `log_dir`."""
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
+    """``with trace('/tmp/tb'):`` profile the block into a Chrome trace
+    file in `log_dir`: the card's kernels, copies and runtime calls where
+    there is a card, the host's operations where there is none, and the
+    block's spans as the track "program spans" over them."""
+    cuda = torch.cuda.is_available()
+    log_dir = str(log_dir)
+    os.makedirs(log_dir, exist_ok=True)
+    opened = time.time_ns()
+
+    def write(prof):
+        path = os.path.join(log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        _add_spans(path, [s for s in _SPANS if s.start_ns >= opened])
+
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU], on_trace_ready=write) as prof:
         yield prof
-
-
-class CumulativeTimer:
-    """cumTime/numCalls accumulator (``pwn_matcher_base.h:54-55``)."""
-
-    def __init__(self):
-        self.cum_time = 0.0
-        self.num_calls = 0
-
-    @contextlib.contextmanager
-    def __call__(self):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.cum_time += time.perf_counter() - t0
-            self.num_calls += 1
-
-    @property
-    def mean(self) -> float:
-        return self.cum_time / self.num_calls if self.num_calls else 0.0
+        if cuda:
+            torch.cuda.synchronize()
 
 
 def gpu_name_and_power_limit():
