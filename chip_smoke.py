@@ -21,16 +21,19 @@ Phases, one line each or more, any failure exits non-zero:
   3. kernel 1 (one aligner system) against its plain PyTorch version on the
      640x480 bench pair at three poses (identity, ground truth, a 5 cm /
      3 deg perturbation), and once more with the non-robust chi2 gate;
-  4. align at 640x480 with the default configs: t_err gate, launch count;
+  4. align at 640x480 with the default configs: t_err gate, kernel-1
+     launches and Gauss-Newton steps counted;
      depth_to_cloud's and align's CUDA graphs (utils/graphs.py, all three
      associations) bit-equal to their eager bodies, and timed against them
      in turns by CUDA events around whole calls, with device times
      (torch.profiler) and the device's idle share; the kernel and its
-     plain version;
+     plain version; the Gauss-Newton step kernel on kernel 1's block rows
+     at the bench pose (tools/gn_step_probe.py) against the plain tail,
+     two launches bit-equal, timed against the plain reduction and tail;
   5. the tracker command line over the bundled 120-frame TUM sequence at
      scale 2 (ATE gate, per-frame and --scan modes), odometry_scan's graphs
      bit-equal to its eager bodies on the --scan inputs, and, as slice 1's
-     main-path run whose kernel launches are counted, at scale 1 (640x480),
+     main-path run whose kernel launches and steps are counted, at scale 1 (640x480),
      its trajectory and per-frame figures bit-equal to a rerun with the
      tracker's stages eager (its keyframe map is phase 9's);
   6. kernel 2 (K candidate systems, the tiled design) at 640x480, K = 8
@@ -344,22 +347,23 @@ def phase_align(ctx):
     from tools.graph_probe import same_bits as same_tree
 
     acfg, proj, ref, cur = ctx["acfg"], ctx["proj"], ctx["ref"], ctx["cur"]
-    before = fa.launches
+    before, before_steps = fa.launches, fa.step_launches
     res = align(ref, cur, proj, config=acfg)
     torch.cuda.synchronize()
-    grew = fa.launches - before
+    grew, steps = fa.launches - before, fa.step_launches - before_steps
     t_err = float(np.linalg.norm((ctx["inv_gt"] @ res.T.double().cpu().numpy())[:3, 3]))
     say("align", f"t_err {t_err:.3e} m; inliers {int(res.inliers)} (JAX bench record {BENCH_INLIERS}); "
-        f"valid {bool(res.valid)}; kernel launches +{grew}")
-    per_align = ctx["per_align"]
+        f"valid {bool(res.valid)}; kernel launches +{grew}, Gauss-Newton steps +{steps}")
+    per_align, steps_per_align = ctx["per_align"], ctx["steps_per_align"]
     check(grew == per_align, f"launches grew by {grew}, not {per_align}")
+    check(steps == steps_per_align, f"Gauss-Newton steps grew by {steps}, not {steps_per_align}")
     check(t_err < 0.01, f"t_err {t_err} >= 0.01 m")
     check(all(bool(torch.isfinite(x).all()) for x in (res.T, res.omega, res.mean)), "non-finite align result")
     for association in ("fused", "gather"):  # one kernel path for all three names
-        before = fa.launches
+        before, before_steps = fa.launches, fa.step_launches
         other = align(ref, cur, proj, config=dataclasses.replace(acfg, association=association))
-        check(fa.launches - before == per_align and torch.equal(other.T, res.T),
-              f"association={association!r} did not run the same kernel path")
+        check(fa.launches - before == per_align and fa.step_launches - before_steps == steps_per_align
+              and torch.equal(other.T, res.T), f"association={association!r} did not run the same kernel path")
     say("align", f"association 'fused' and 'gather' launch the kernel {per_align} times and give the same T")
     # each graph against its eager body on the same inputs, bit for bit
     d_cur, ccfg = ctx["d_cur"], ctx["ccfg"]
@@ -388,11 +392,63 @@ def phase_align(ctx):
         f"{plain_ms:.6f}; by torch.profiler: kernel {device_ms(kernel, 50):.6f}")
     ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
     n_bytes = system_bytes(ctx["cur_packed"], params, proj, fa.N_SUMS)
-    return kernel_ms, plain_ms, bound(n_bytes, proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM)
+    return kernel_ms, plain_ms, bound(n_bytes, proj.rows * proj.cols * OPS_PER_PIXEL_SYSTEM), step_kernel_check(ctx)
+
+
+def step_kernel_check(ctx):
+    """The Gauss-Newton step kernel on kernel 1's 640x480 block rows at the
+    bench pose, with and without the re-orthonormalisation: its sums
+    bit-equal to `fused_system`'s, invT and params within 2e-6 (relative,
+    of the norm) of the plain tail (`fused_aligner.step_reference`), two
+    launches bit-equal. Timed against the plain version (the rows reduced
+    in float64, then the plain tail), beside the bound of the bytes it
+    reads and writes. Returns (max abs err of invT and params, ms, plain
+    ms, (bound ms, bound by))."""
+    import torch
+
+    from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.utils.profiling import bound, graph_ms
+    from tools import gn_step_probe
+
+    acfg, proj = ctx["acfg"], ctx["proj"]
+    invT = torch.as_tensor(ctx["inv_gt"], dtype=torch.float32, device=ctx["device"])
+    params = fa.params_from_invT(invT)
+    rows, sums = gn_step_probe.block_rows(ctx["cur_packed"], ctx["ref_table"], params, proj, acfg)
+    check(torch.equal(sums, fa.fused_system(ctx["cur_packed"], ctx["ref_table"], params, proj, acfg)),
+          "kernel 1's block rows reduce to other sums than fused_system's")
+    err, rel = 0.0, 0.0
+    for reorthonormalize in (False, True):
+        got = gn_step_probe.step_kernel(rows, invT, acfg.damping, reorthonormalize)
+        again = gn_step_probe.step_kernel(rows, invT, acfg.damping, reorthonormalize)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), "two launches of the step kernel differ")
+        k_invT, k_params, _, k_sums = got
+        check(torch.equal(k_sums, sums), "the step kernel's sums differ from fused_system's")
+        for k, p in zip((k_invT, k_params), fa.step_reference(sums, invT, acfg.damping, reorthonormalize)):
+            k, p = k.double(), p.double()
+            err = max(err, float((k - p).abs().max()))
+            rel = max(rel, float(torch.linalg.norm(k - p) / torch.linalg.norm(p)))
+    check(rel < 2e-6, f"the step kernel's invT or params differ from the plain tail's by {rel:.3e} (relative)")
+
+    def kernel():
+        return gn_step_probe.step_kernel(rows, invT, acfg.damping, True)
+
+    def plain():
+        return fa.step_reference(rows.sum(0, dtype=torch.float64).float(), invT, acfg.damping, True)
+
+    kernel_ms, plain_ms = graph_ms(kernel, rows, 50), graph_ms(plain, rows, 20)
+    # the block rows read; invT read, the 75-float state written
+    n_bytes = rows.numel() * 4 + 16 * 4 + fa.N_STATE * 4
+    bound_ms, bound_by = bound(n_bytes, rows.numel())
+    say("step", f"Gauss-Newton step kernel on kernel 1's {rows.shape[0]} block rows at 640x480: sums bit-equal to "
+        f"fused_system's, two launches bit-equal, invT and params within {rel:.3e} (relative; {err:.3e} abs) of "
+        f"the plain tail; device ms per call by CUDA graph replays: kernel {kernel_ms:.6f}, plain {plain_ms:.6f}; "
+        f"bound {bound_ms:.6f} ({bound_by}, {n_bytes} B, {100 * bound_ms / kernel_ms:.1f}% of it)")
+    return err, kernel_ms, plain_ms, (bound_ms, bound_by)
 
 
 def phase_tracker(ctx, out_dir):
-    """Phase 5: the tracker command line; returns the main-path launches.
+    """Phase 5: the tracker command line; returns the main-path launches
+    of kernel 1 and of the step kernel.
     The --scan inputs at scale 2 through odometry_scan's graphs and through
     its eager bodies, bit for bit; the scale-1 run's trajectory and
     per-frame figures against a rerun with the tracker's stages eager, bit
@@ -453,14 +509,16 @@ def phase_tracker(ctx, out_dir):
             pwn_odometry.PwnTracker = pt.PwnTracker
         return r, made[0]
 
-    fa.launches = 0  # slice 1's main-path run: count the kernel launches of this run only
+    fa.launches = fa.step_launches = 0  # slice 1's main-path run: count the launches of this run only
     s1, tracker = scale1("")
-    main_launches = fa.launches
+    main_launches, main_steps = fa.launches, fa.step_launches
     ate1 = s1["ate"]["rmse"]
     say("tracker", f"scale 1 (640x480): ATE {ate1:.4f} m; keyframes {s1['keyframes']}/{s1['frames']}; "
-        f"{s1['frames_per_s']:.2f} frames/s; kernel launches {main_launches}")
+        f"{s1['frames_per_s']:.2f} frames/s; kernel launches {main_launches}, Gauss-Newton steps {main_steps}")
     check(s1["frames"] == 120 and np.isfinite(ate1), "scale-1 run incomplete")
     check(main_launches == per_align * (s1["frames"] - 1), f"main path launched the kernel {main_launches} times")
+    check(main_steps == ctx["steps_per_align"] * (s1["frames"] - 1),
+          f"main path launched the step kernel {main_steps} times")
     ctx["tracker_s1"] = tracker
 
     # the same run with the tracker's stages eager
@@ -481,7 +539,7 @@ def phase_tracker(ctx, out_dir):
     ctx["tracker_fps"] = dict(scale2=s2["frames_per_s"], scan=sc["frames_per_s"], scale1=s1["frames_per_s"],
                               scale1_eager=e1["frames_per_s"])
     ctx["captures"] = report_captures("graphs", ctx.get("captures", 0))
-    return main_launches
+    return main_launches, main_steps
 
 
 def candidates(ctx):
@@ -549,8 +607,12 @@ def phase_kernel2(ctx):
 
 
 def phase_align_batch(ctx):
-    """Phase 7: align_batch at K = 8 against K serial align calls, and its
-    graph against its eager body (bit for bit, and timed in turns)."""
+    """Phase 7: align_batch at K = 8 against K serial align calls on the
+    plain Gauss-Newton tail, the one align_batch takes (T within 1e-4,
+    inliers equal); the serial calls on the main path's step kernel
+    against those on the plain tail (T within 1e-5 m and 1e-6 rad, inliers
+    within 0.01%); align_batch's graph against its eager body (bit for
+    bit, and timed in turns)."""
     import numpy as np
     import torch
 
@@ -569,13 +631,32 @@ def phase_align_batch(ctx):
     torch.cuda.synchronize()
     grew1, grew2 = fa.launches - before1, fa.batch_launches - before2
     serial = [align(ref, cur, proj, guesses[k], acfg) for k, ref in enumerate(ctx["ref_list"])]
+
+    def plain_step(cur_packed, ref_table, params, invT, projector, cfg, reorthonormalize):
+        sums = fa.fused_system(cur_packed, ref_table, params, projector, cfg)
+        return fa.step_reference(sums, invT, cfg.damping, reorthonormalize)
+
+    fused_step, fa.fused_step = fa.fused_step, plain_step
+    try:  # eager: the graph of align holds the step kernel
+        plain = [al._align(ref, cur, proj, guesses[k], acfg, None) for k, ref in enumerate(ctx["ref_list"])]
+    finally:
+        fa.fused_step = fused_step
+    dt_step = max(float(np.linalg.norm((s.T - p.T)[:3, 3].double().cpu().numpy())) for s, p in zip(serial, plain))
+    dr_step = max(rot_err(s.T.cpu().numpy(), p.T.cpu().numpy()) for s, p in zip(serial, plain))
+    di_step = max(abs(int(s.inliers) - int(p.inliers)) / int(p.inliers) for s, p in zip(serial, plain))
+    say("align_batch", f"K={K_CANDIDATES} serial align, the step kernel against the plain tail: max translation "
+        f"{dt_step:.3e} m, rotation {dr_step:.3e} rad, inliers {100 * di_step:.4f}% apart; inliers "
+        f"{[int(s.inliers) for s in serial]} (plain tail {[int(p.inliers) for p in plain]})")
+    check(dt_step < 1e-5 and dr_step < 1e-6 and di_step <= 1e-4,
+          "serial align on the step kernel differs from the plain tail")
+    serial = plain  # align_batch's tail
     dT = max(float((rb.T[k] - s.T).abs().max()) for k, s in enumerate(serial))
     t_err = max(float(np.linalg.norm((np.linalg.inv(ctx["T_true"][k]) @ rb.T[k].double().cpu().numpy())[:3, 3]))
                 for k in range(K_CANDIDATES))
     inl_b = [int(x) for x in rb.inliers.cpu()]
     inl_s = [int(s.inliers) for s in serial]
-    say("align_batch", f"K={K_CANDIDATES}: max |T - serial T| {dT:.2e}; max t_err {t_err:.3e} m; inliers {inl_b} "
-        f"(serial {inl_s}); kernel-2 launches +{grew2}, kernel-1 launches +{grew1}")
+    say("align_batch", f"K={K_CANDIDATES}: max |T - serial T| {dT:.2e} (serial on the plain tail); max t_err "
+        f"{t_err:.3e} m; inliers {inl_b} (serial {inl_s}); kernel-2 launches +{grew2}, kernel-1 launches +{grew1}")
     check(dT <= 1e-4, f"align_batch T differs from serial align by {dT}")
     check(inl_b == inl_s, "align_batch inliers differ from serial align")
     check(grew2 == ctx["per_align"] and grew1 == 0, f"launches +{grew2} (kernel 2), +{grew1} (kernel 1)")
@@ -636,10 +717,11 @@ def phase_kernel3(ctx):
     say("timing", f"kernel 3 at 640x480, device ms per call by CUDA graph replays: kernel {kernel_ms:.6f}, "
         f"plain {plain_ms:.6f}")
 
-    lin.launches, before1 = 0, fa.launches  # kernel 3's path: align with the z-buffer association
+    lin.launches, before1, steps = 0, fa.launches, fa.step_launches  # kernel 3's path: the z-buffer association
     res = al.align(ctx["ref"], ctx["cur"], proj, config=zcfg)
     torch.cuda.synchronize()
     launches = lin.launches
+    check(fa.step_launches == steps, "align with the z-buffer association launched the step kernel")
     t_err = float(np.linalg.norm((ctx["inv_gt"] @ res.T.double().cpu().numpy())[:3, 3]))
     say("align", f"association 'zbuffer': t_err {t_err:.3e} m; inliers {int(res.inliers)}; "
         f"kernel-3 launches {launches}, kernel-1 launches +{fa.launches - before1}")
@@ -3247,7 +3329,8 @@ def run(out_dir):
     ref, cur = depth_to_cloud(d_ref, proj, ccfg), depth_to_cloud(d_cur, proj, ccfg)
     ctx = dict(device=device, proj=proj, ccfg=ccfg, acfg=acfg, ref=ref, cur=cur, d_ref=d_ref, d_cur=d_cur, T_gt=T_gt,
                inv_gt=np.linalg.inv(T_gt), cur_packed=fa.pack_cur(cur), ref_table=fa.pack_ref(ref),
-               per_align=acfg.outer_iterations * acfg.inner_iterations + 1)
+               per_align=acfg.outer_iterations * acfg.inner_iterations + 1,
+               steps_per_align=acfg.outer_iterations * acfg.inner_iterations)
 
     def phase(n, fn, *args):
         t0 = time.perf_counter()
@@ -3257,8 +3340,8 @@ def run(out_dir):
 
     say("time", f"phases 1-2 took {time.perf_counter() - t_start:.1f} s")
     err1 = phase(3, phase_kernel1, ctx)
-    k1_ms, k1_plain_ms, k1_bound = phase(4, phase_align, ctx)
-    k1_launches = phase(5, phase_tracker, ctx, out_dir)
+    k1_ms, k1_plain_ms, k1_bound, (err_step, step_ms, step_plain_ms, step_bound) = phase(4, phase_align, ctx)
+    k1_launches, step_launches = phase(5, phase_tracker, ctx, out_dir)
     ctx["refs"], ctx["ref_list"], ctx["T_true"], ctx["poses"] = candidates(ctx)
     phase(6, phase_kernel2, ctx)
     phase(7, phase_align_batch, ctx)
@@ -3313,6 +3396,8 @@ def run(out_dir):
          k2_plain_ms, k2_bound),
         ("linearizer", "linearizer.cu", "ops/pallas_linearizer.py:164", k3_launches, err3, k3_ms, k3_plain_ms,
          k3_bound),
+        ("gauss_newton_step", "fused_aligner.cu", "pwn/aligner.py:530 (gn_step and the chart, XLA; no pl.pallas_call)",
+         step_launches, err_step, step_ms, step_plain_ms, step_bound),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"g2o_frontend_tpu_torch/csrc/{source}",

@@ -12,6 +12,16 @@ exactly the JAX reference's ``_correspondences_gather`` followed by
   tensor they launch the hand-written kernels of ``csrc/fused_aligner.cu``
   (or raise); on a CPU tensor they take the plain version. They count
   their kernel launches in `launches` and `batch_launches`.
+- `fused_step` is one Gauss-Newton step of `pwn/aligner.align`: the system
+  at `params`, damped, solved, and the pose updated through the chart. On
+  a CUDA tensor it launches kernel 1 and the step kernel, which reduces
+  kernel 1's block rows and writes the new invT and the next launch's
+  params on the card; it counts the step in `step_launches` and kernel 1 in
+  `launches`. On a CPU tensor it takes the plain version,
+  `fused_system_reference` then `step_reference`.
+- `step_reference` is the plain Gauss-Newton update on the 29 sums, and
+  `gn_update` its solve and chart update alone (the aligner's plain tail,
+  with the z-buffer association, priors and `align_batch`).
 - `batch_layout` is the batch kernel's launch geometry (tiles of current
   pixels, candidate groups, scratch shape, limits), in Python so that the
   CPU tests reach it; `fused_system_batch` launches with it and rejects
@@ -42,12 +52,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import lie
 from . import cuda_build, sym6
 
 N_SUMS = 29
 C_CUR = 20
 C_REF = 8
 N_PARAMS = 24
+# a Gauss-Newton step's state on the card: invT (16), params (24), dx (6), sums (29)
+N_STATE = 16 + N_PARAMS + 6 + N_SUMS
 
 # The batch kernel's geometry (csrc/fused_aligner.cu, pwn_terms.cuh): 128
 # threads a block, 2 current pixels a thread, at most 8 candidates a block,
@@ -62,10 +75,12 @@ BATCH_ROW_STAGES = 2
 FILL_BLOCKS = 5 * 132
 MAX_K = 2**16 - 1  # the f64 reduction's grid (29, K)
 
-# kernel launches made on CUDA tensors since the last reset: by
-# `fused_system` (one system) and by `fused_system_batch` (K systems)
+# kernel launches made on CUDA tensors since the last reset: kernel 1 by
+# `fused_system` and `fused_step` (one system), the batch kernel by
+# `fused_system_batch` (K systems), the step kernel by `fused_step`
 launches = 0
 batch_launches = 0
+step_launches = 0
 
 SOURCE = cuda_build.CSRC / "fused_aligner.cu"
 _lib = None
@@ -261,6 +276,27 @@ def fused_system_batch_reference(cur_packed, ref_tables, params, projector, cfg)
     )
 
 
+def gn_update(A, b, invT, reorthonormalize):
+    """Solve A dx = -b and update ``invT <- v2t(dx) invT`` through the
+    quaternion chart, then, with `reorthonormalize`, ``invT <-
+    v2t(t2v(invT))`` (``aligner.cpp:88-117``). A is the damped system; A,
+    b and invT may share a leading batch axis (`align_batch`)."""
+    dx = torch.linalg.solve_ex(A, -b[..., None], check_errors=False).result[..., 0]
+    invT = lie.se3_v2t(dx) @ invT
+    if reorthonormalize:
+        invT = lie.se3_v2t(lie.se3_t2v(invT))
+    return invT
+
+
+def step_reference(sums, invT, damping, reorthonormalize):
+    """The plain version of the step kernel: H and b of the (29,) sums,
+    damping on the diagonal, `gn_update`. Returns (invT, params)."""
+    H, b, _, _ = unpack_sums(sums)
+    eye6 = torch.eye(6, dtype=invT.dtype, device=invT.device)  # the aligner's: the clouds' dtype
+    invT = gn_update(H + damping * eye6, b, invT, reorthonormalize)
+    return invT, params_from_invT(invT)
+
+
 # -- the batch kernel's launch geometry ----------------------------------------------
 
 
@@ -363,6 +399,16 @@ def _load():
         lib.fused_aligner_batch_launch.restype = ctypes.c_int
         lib.fused_aligner_batch_grid_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _GEOMETRY_ARGS
         lib.fused_aligner_batch_grid_launch.restype = ctypes.c_int
+        lib.fused_aligner_step_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int] + _GEOMETRY_ARGS
+        )
+        lib.fused_aligner_step_launch.restype = ctypes.c_int
+        lib.gauss_newton_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.gauss_newton_step_launch.restype = ctypes.c_int
+        if lib.gauss_newton_state_floats() != N_STATE:
+            raise RuntimeError(f"{SOURCE.name} has a step state of {lib.gauss_newton_state_floats()} floats, "
+                               f"the wrapper {N_STATE}")
         built = (lib.fused_aligner_batch_threads(), lib.fused_aligner_batch_tile(), lib.fused_aligner_batch_max_group())
         if built != (BATCH_THREADS, BATCH_TILE, BATCH_MAX_GROUP):
             raise RuntimeError(f"{SOURCE.name} has batch threads, tile and group {built}, batch_layout "
@@ -371,22 +417,31 @@ def _load():
     return _lib
 
 
-def _check(cur_packed, ref_table, params, H, W, K=None):
-    dev = cur_packed.device
-    lead = () if K is None else (K,)
-    for name, x, shape in (
-        ("cur_packed", cur_packed, (C_CUR, H, W)),
-        ("ref_table", ref_table, lead + (H * W, C_REF)),
-        ("params", params, lead + (N_PARAMS,)),
-    ):
+def _check_tensors(dev, *named):
+    """Each (name, tensor, shape) on `dev`, float32, of that shape and
+    contiguous, or ValueError."""
+    for name, x, shape in named:
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, cur_packed on {dev}")
+            raise ValueError(f"{name} is on {x.device}, the first input on {dev}")
         if x.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(cur_packed, ref_table, params, H, W, K=None, invT=None):
+    dev = cur_packed.device
+    lead = () if K is None else (K,)
+    named = [
+        ("cur_packed", cur_packed, (C_CUR, H, W)),
+        ("ref_table", ref_table, lead + (H * W, C_REF)),
+        ("params", params, lead + (N_PARAMS,)),
+    ]
+    if invT is not None:
+        named.append(("invT", invT, (4, 4)))
+    _check_tensors(dev, *named)
     if ref_table.data_ptr() % 16:
         raise ValueError("ref_table must be 16-byte aligned (float4 loads)")
     if not 0 < C_CUR * H * W < 2**31:
@@ -438,6 +493,47 @@ def fused_system(cur_packed, ref_table, params, projector, cfg):
         raise RuntimeError(f"fused_aligner kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _split_state(state):
+    """A step kernel's (N_STATE,) state -> (invT (4, 4), params (24,), dx
+    (6,), sums (29,)), views of it."""
+    invT, params, dx, sums = state.split((16, N_PARAMS, 6, N_SUMS))
+    return invT.view(4, 4), params, dx, sums
+
+
+def fused_step(cur_packed, ref_table, params, invT, projector, cfg, reorthonormalize):
+    """One Gauss-Newton step of `pwn/aligner.align` (see module docstring).
+
+    cur_packed (20, H, W), ref_table (H*W, 8), params (24,) and invT (4, 4)
+    are float32 on one device, params those of invT. Returns the new
+    (invT (4, 4), params (24,)); with `reorthonormalize` (an outer
+    iteration's last inner step) invT is re-orthonormalised through the
+    chart. A CUDA tensor launches kernel 1 and the step kernel on the
+    current stream and does not synchronise; a CPU tensor takes
+    `fused_system_reference` and `step_reference`.
+    """
+    global launches, step_launches
+    dev = _device_of(cur_packed, "fused_step")
+    if dev.type == "cpu":
+        sums = fused_system_reference(cur_packed, ref_table, params, projector, cfg)
+        return step_reference(sums, invT, cfg.damping, reorthonormalize)
+    H, W = projector.rows, projector.cols
+    _check(cur_packed, ref_table, params, H, W, invT=invT)
+    lib = _load()
+    with torch.cuda.device(dev):
+        block_sums = torch.empty((lib.fused_aligner_blocks(H * W), N_SUMS), dtype=torch.float32, device=dev)
+        state = torch.empty(N_STATE, dtype=torch.float32, device=dev)
+        err = lib.fused_aligner_step_launch(
+            cur_packed.data_ptr(), ref_table.data_ptr(), params.data_ptr(), invT.data_ptr(),
+            block_sums.data_ptr(), state.data_ptr(), H, W, cfg.damping, int(bool(reorthonormalize)),
+            *_geometry(projector, cfg, dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_aligner step launch failed: CUDA error {err}")
+    launches += 1
+    step_launches += 1
+    return _split_state(state)[:2]
 
 
 def fused_system_batch(cur_packed, ref_tables, params, projector, cfg):

@@ -21,6 +21,15 @@ Every inner iteration refreshes the association, as the JAX fused path
 does; JAX's gather and z-buffer paths freeze it within an outer iteration,
 which is the same at the default ``inner_iterations=1``.
 
+A Gauss-Newton step of the gather associations without priors is
+``ops/fused_aligner.fused_step``: on a CUDA tensor two launches, kernel 1
+and the step kernel, which solves and updates invT on the card; on a CPU
+tensor the plain system and the plain update. The z-buffer association and
+priors take the plain update (`fused_aligner.gn_update`) on any device:
+the z-buffer's system comes from the linearizer, not kernel 1, and the
+prior system is re-linearised through ``jacfwd`` every iteration.
+`align_batch` takes it too, on its K systems at once.
+
 `align_batch` runs K alignments of candidate references against one shared
 current cloud (the loop closer's batched candidate matching): one launch of
 the batch kernel (``fused_aligner.fused_system_batch``) per Gauss-Newton
@@ -265,15 +274,27 @@ def _align(reference, current, projector, initial_guess, config, priors) -> Alig
             H, b = H + Hp, b + bp
         return H, b
 
-    invT = lie.se3_inverse(T0)
-    for _ in range(cfg.outer_iterations):
-        for _ in range(cfg.inner_iterations):
+    # step(invT, params, last) -> (invT, params); `last` re-orthonormalizes
+    # through the chart (aligner.cpp:117)
+    fused = cfg.association != "zbuffer" and priors is None
+    if fused:
+
+        def step(invT, params, last):
+            return _fa.fused_step(cur_packed, ref_table, params, invT, projector, cfg, last)
+
+    else:
+
+        def step(invT, params, last):
             H, b, _, _ = system(invT)
-            H, b = add_priors(H + cfg.damping * eye6, b, invT)
-            dx = _solve(H, -b[:, None])[:, 0]
-            invT = lie.se3_v2t(dx) @ invT
-        # re-orthonormalize through the chart (aligner.cpp:117)
-        invT = lie.se3_v2t(lie.se3_t2v(invT))
+            return _fa.gn_update(*add_priors(H + cfg.damping * eye6, b, invT), invT, last), None
+
+    invT = lie.se3_inverse(T0)
+    params = _fa.params_from_invT(invT) if fused else None
+    for _ in range(cfg.outer_iterations):
+        for i in range(cfg.inner_iterations):
+            invT, params = step(invT, params, i == cfg.inner_iterations - 1)
+        if not cfg.inner_iterations:  # no step re-orthonormalized: the chart alone, as JAX's loop does
+            invT = lie.se3_v2t(lie.se3_t2v(invT))
     T = lie.se3_inverse(invT)
 
     # statistics at the optimum (aligner.cpp:152-199)
@@ -327,11 +348,11 @@ def _align_batch(references, current, projector, initial_guesses, config) -> Ali
 
     invTs = lie.se3_inverse(T0)
     for _ in range(cfg.outer_iterations):
-        for _ in range(cfg.inner_iterations):
+        for i in range(cfg.inner_iterations):
             H, b, _, _ = systems(invTs)
-            dx = _solve(H + cfg.damping * eye6, -b[..., None])[..., 0]
-            invTs = lie.se3_v2t(dx) @ invTs
-        invTs = lie.se3_v2t(lie.se3_t2v(invTs))
+            invTs = _fa.gn_update(H + cfg.damping * eye6, b, invTs, i == cfg.inner_iterations - 1)
+        if not cfg.inner_iterations:
+            invTs = lie.se3_v2t(lie.se3_t2v(invTs))
     Ts = lie.se3_inverse(invTs)
     H, b, chi2, inliers = systems(invTs)
     return _finalize_stats(Ts, H, chi2, inliers, cfg)

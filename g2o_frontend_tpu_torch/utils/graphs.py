@@ -107,6 +107,7 @@ COUNTERS = (
     (fused_aligner, "batch_launches"),
     (linearizer, "launches"),
     (segment_sum, "launches"),
+    (fused_aligner, "step_launches"),
 )
 
 MODES = ("graph", "masked", "eager")

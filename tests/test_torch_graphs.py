@@ -8,9 +8,9 @@ and a tensor guess alike); a CPU call never touches ``torch.cuda``; the
 `odometry_scan` step, iterated, equals the loop it replaced bit for bit and
 the JAX package's ``lax.scan`` within ``tests/test_torch_tracker.py``'s
 tolerances (trajectory 2e-3 m and 2e-3 in the rotation entries, inliers 2%,
-fractions 0.01, keyframe flags equal); the launch counters (kernels 1-3
-and the segment sums) add a key's captured launches once a replay (a
-stand-in for the graph object). On the
+fractions 0.01, keyframe flags equal); the launch counters (kernels 1-3,
+the segment sums and the aligner's Gauss-Newton steps) add a key's
+captured launches once a replay (a stand-in for the graph object). On the
 card (skipped here): ``tools/graph_probe.py``'s checks, each graph bit-equal
 to its eager body.
 """
@@ -186,8 +186,8 @@ class StandInGraph:
         self.static_out[0].copy_(self.static_in[0] * 2)
 
 
-@pytest.mark.parametrize("launches", [(11, 0, 0, 0), (0, 11, 0, 0), (0, 0, 11, 0), (3, 1, 2, 0), (0, 0, 0, 7),
-                                      (3, 1, 2, 40)])
+@pytest.mark.parametrize("launches", [(11, 0, 0, 0, 10), (0, 11, 0, 0, 0), (0, 0, 11, 0, 0), (3, 1, 2, 0, 2),
+                                      (0, 0, 0, 7, 0), (3, 1, 2, 40, 1)])
 def test_replay_counts_the_captured_launches(monkeypatch, launches):
     for mod, attr in graphs.COUNTERS:
         monkeypatch.setattr(mod, attr, 5)
@@ -197,7 +197,8 @@ def test_replay_counts_the_captured_launches(monkeypatch, launches):
     outs = [g.replay([torch.full((3,), float(k))]) for k in range(1, 4)]
     assert g.graph.replays == 3
     assert [getattr(mod, attr) for mod, attr in graphs.COUNTERS] == [5 + 3 * n for n in launches]
-    assert (fa.launches, fa.batch_launches, lin.launches, ss.launches) == tuple(5 + 3 * n for n in launches)
+    assert (fa.launches, fa.batch_launches, lin.launches, ss.launches, fa.step_launches) == tuple(
+        5 + 3 * n for n in launches)
     # each call's outputs are its own clones, not the static buffers
     assert [o[0].tolist() for o in outs] == [[2.0] * 3, [4.0] * 3, [6.0] * 3]
     assert all(o[0].data_ptr() != static_out[0].data_ptr() for o in outs)
