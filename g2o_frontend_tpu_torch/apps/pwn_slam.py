@@ -1,11 +1,13 @@
 """Full PWN SLAM command line (counterpart of
 ``g2o_frontend_tpu/apps/pwn_slam.py``, the pwn_slam_app equivalent).
 
-Composes the whole stack per frame: depth -> cloud -> keyframe tracking ->
-partitioned loop-closure search with consensus (candidates matched in one
+Feeds every frame to `slam.pwn_slam.PwnSlam.process_frame`, which composes
+the whole stack: depth -> cloud -> keyframe tracking -> partitioned
+loop-closure search with consensus (candidates matched in one
 `align_batch` per partition) -> periodic hierarchical pose-graph
-optimization (the ``pwn_tracker2/pwn_slam_app.cpp:31`` flow); then writes
-the map checkpoint and the TUM trajectory, and prints one JSON line.
+optimization (the ``pwn_tracker2/pwn_slam_app.cpp:31`` flow); then runs the
+final solve, writes the map checkpoint and the TUM trajectory, and prints
+one JSON line.
 
 Usage:
   python -m g2o_frontend_tpu_torch.apps.pwn_slam SEQ_DIR [--device cuda]
@@ -31,15 +33,14 @@ import time
 import numpy as np
 import torch
 
-from ..graph.reflector import MapReflector
 from ..io import tum
 from ..io.checkpoint import save_map
 from ..pwn.aligner import AlignerConfig
 from ..pwn.converter import ConverterConfig
 from ..pwn.pipeline import load_pipeline
-from ..slam.map_closer import CloserConfig, MapCloser
-from ..slam.map_merger import MapMerger
-from ..slam.pwn_tracker import PwnTracker, PwnTrackerConfig
+from ..slam.map_closer import CloserConfig
+from ..slam.pwn_slam import PwnSlam
+from ..slam.pwn_tracker import PwnTrackerConfig
 from ..utils import evaluation, lie
 from ..utils.synth import default_projector, render_planes_depth
 from .pwn_odometry import configs
@@ -127,37 +128,20 @@ def run(argv=None) -> dict:
     # minCloudInliers is a 640x480 scale-1 value (conf PwnTracker line);
     # scale it with the image area
     min_inl = max(50, int(3000 * (proj.rows * proj.cols) / (480 * 640)))
-    tracker = PwnTracker(
-        proj, ccfg, acfg, PwnTrackerConfig(new_frame_inliers_fraction=kf_fraction, min_cloud_inliers=min_inl),
-        device=device,
-    )
-    closer = MapCloser(tracker.manager, tracker.cache, proj, acfg, closer_cfg)
-    reflector = MapReflector(tracker.manager, device=device)
-    # level-1 big-node layer (MapMerger stream grouping, map_merger.cpp:43):
+    # level-1 big-node layer (MapMerger stream grouping, map_merger.cpp:43)
     # feeds the coarse pass of optimize_hierarchical
-    merger = MapMerger(tracker.manager, list_size=5)
+    slam = PwnSlam(
+        proj, ccfg, acfg, PwnTrackerConfig(new_frame_inliers_fraction=kf_fraction, min_cloud_inliers=min_inl),
+        closer_cfg, optimize_each_n_keyframes=args.optimize_each_n_keyframes, device=device,
+    )
+    tracker = slam.tracker
 
     timestamps = []
-    n_closures = 0
-    kf_at_last_opt = 0
     t0 = time.perf_counter()
     for ts, depth in frames:
-        m = tracker.process_frame(depth)
+        slam.process_frame(depth)
         timestamps.append(ts)
-        if m["keyframe"] and tracker.n_keyframes > 2:
-            key_node = tracker.manager.nodes[-1]
-            rels = closer.process_key_node(key_node)
-            merger.process_key_node(key_node)
-            n_closures += len(rels)
-            if rels or tracker.n_keyframes - kf_at_last_opt >= args.optimize_each_n_keyframes:
-                # coarse level-1 solve + rigid warp + warm fine solve
-                reflector.optimize_hierarchical(iters=5, cg_iters=40)
-                kf_at_last_opt = tracker.n_keyframes
-                # keep the tracker's frame anchored to the optimized map
-                tracker.global_T = tracker.prev_kf_node.transform.copy()
-                tracker.prev_kf_T = tracker.global_T.copy()
-
-    chi2, _ = reflector.optimize_hierarchical(iters=10, cg_iters=60)
+    chi2 = slam.finish()
     seconds = time.perf_counter() - t0
     save_map(args.out_map, tracker.manager)
 
@@ -170,8 +154,8 @@ def run(argv=None) -> dict:
         "device": str(device),
         "frames": len(frames),
         "keyframes": tracker.n_keyframes,
-        "closures": n_closures,
-        "batch_sizes": list(closer.batch_sizes),
+        "closures": slam.n_closures,
+        "batch_sizes": list(slam.closer.batch_sizes),
         "final_chi2": chi2,
         "frames_per_s": len(frames) / seconds,
         "map": args.out_map,

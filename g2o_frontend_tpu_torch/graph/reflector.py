@@ -6,10 +6,16 @@ The reference mirrors its MapManager into a g2o SparseOptimizer
 is the flat-tensor `PoseGraph3D`: `optimize()` packs one level's nodes and
 accepted relations, runs `optimize_se3` on the reflector's device, and
 writes the estimates back into the map nodes (float64 on the host).
+`solves` counts the calls of `optimize` and `optimize_hierarchical` (one
+each, its inner solves not counted apart), always on. A list put in
+`MapReflector.record` receives a `MapSolveRecord` of each level-0 solve
+(the fine pass of `optimize_hierarchical` included); None (the default)
+records nothing.
 """
 from __future__ import annotations
 
 import bisect
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,10 +25,35 @@ from ..utils import lie
 from .map_manager import MapManager
 from .store import PoseGraph3D, _cap
 
+solves = 0  # map solves since the process started (or a caller's reset)
+# the coarse (level-1) pass of `optimize_hierarchical`: LM iterations, CG steps
+COARSE_ITERS, COARSE_CG_ITERS = 12, 60
+
+
+class MapSolveRecord(NamedTuple):
+    """One level-0 solve: the nodes' frames (their payload's ``frame``) and
+    (N, 4, 4) poses going in, the relations as (E, 2) node indices, (E, 4, 4)
+    transforms and (E, 6, 6) information, the gauge node's index, the LM
+    iterations and CG steps it was given, and the (N, 4, 4) poses coming
+    out."""
+
+    frames: list
+    poses_in: np.ndarray
+    edges: np.ndarray
+    transforms: np.ndarray
+    information: np.ndarray
+    gauge: int
+    iters: int
+    cg_iters: int
+    poses_out: np.ndarray
+
 
 def _T_to_pose7(T):
-    q = lie.mat2quat_full(torch.as_tensor(T[:3, :3], dtype=torch.float32)).numpy()
-    return np.concatenate([T[:3, 3], q[1:], q[:1]])
+    """(..., 4, 4) float64 -> (..., 7) [t, qx qy qz qw], the rotation in
+    float32, every pose in one call."""
+    T = np.asarray(T, np.float64)
+    q = lie.mat2quat_full(torch.as_tensor(T[..., :3, :3], dtype=torch.float32)).numpy()
+    return np.concatenate([T[..., :3, 3], q[..., 1:], q[..., :1]], -1)
 
 
 def _adjoint_se3(T):
@@ -41,9 +72,13 @@ def _adjoint_se3(T):
 
 
 def _pose7_to_T(p):
-    T = np.eye(4)
-    T[:3, :3] = lie.quat2mat(torch.as_tensor(p[3:6], dtype=torch.float32)).numpy()
-    T[:3, 3] = p[:3]
+    """(..., 7) -> (..., 4, 4) float64, the rotation from the float32
+    quaternion's vector part; every pose in one call."""
+    p = np.asarray(p, np.float64)
+    T = np.zeros(p.shape[:-1] + (4, 4))
+    T[..., :3, :3] = lie.quat2mat(torch.as_tensor(p[..., 3:6], dtype=torch.float32)).numpy()
+    T[..., :3, 3] = p[..., :3]
+    T[..., 3, 3] = 1.0
     return T
 
 
@@ -62,22 +97,23 @@ class MapReflector:
         self.manager = manager
         self.device = torch.device(device)
         self.last_cg_iters = 0  # CG iterations of the last optimize
+        self.record: list | None = None  # a list receives each level-0 solve's MapSolveRecord
 
     def _pack(self, nodes, rels, gauge_idx) -> PoseGraph3D:
         n, ep = len(nodes), len(rels)
         NP, EP = _cap(max(n, 1)), _cap(max(ep, 1))
         poses = np.zeros((NP, 7))
         poses[:, 6] = 1.0
-        for i, nd in enumerate(nodes):
-            poses[i] = _T_to_pose7(nd.transform)
+        if n:
+            poses[:n] = _T_to_pose7(np.stack([nd.transform for nd in nodes]))
         pp_ij = np.zeros((EP, 2), np.int64)
         pp_z = np.zeros((EP, 7))
         pp_z[:, 6] = 1.0
         pp_w = np.zeros((EP, 6, 6))
-        for k, (i, j, T, info) in enumerate(rels):
-            pp_ij[k] = (i, j)
-            pp_z[k] = _T_to_pose7(T)
-            pp_w[k] = info
+        if ep:
+            pp_ij[:ep] = [(i, j) for i, j, _, _ in rels]
+            pp_z[:ep] = _T_to_pose7(np.stack([T for _, _, T, _ in rels]))
+            pp_w[:ep] = np.stack([info for _, _, _, info in rels])
         fixed = np.zeros(NP, bool)
         if n:
             fixed[gauge_idx] = True
@@ -111,20 +147,33 @@ class MapReflector:
         return self._pack(nodes, rels, gauge)
 
     def optimize(self, iters=10, cg_iters=50, gauge_node=None, level=0, precond="jacobi") -> float:
+        global solves
+        solves += 1
+        return self._optimize(iters, cg_iters, gauge_node, level, precond)
+
+    def _optimize(self, iters, cg_iters, gauge_node=None, level=0, precond="jacobi") -> float:
         nodes, rels, idx_of = self._level_nodes_rels(level)
         if not nodes:
             return 0.0
         gauge = idx_of.get(id(gauge_node), 0) if gauge_node is not None else 0
         g = self._pack(nodes, rels, gauge)
+        poses_in = np.stack([nd.transform for nd in nodes]) if self.record is not None and level == 0 else None
         g_opt, stats = optimize_se3(g, iters=iters, cg_iters=cg_iters, precond=precond)
-        poses = g_opt.poses.cpu().numpy()
-        for i, nd in enumerate(nodes):
-            nd.transform = _pose7_to_T(poses[i].astype(np.float64))
+        poses = _pose7_to_T(g_opt.poses[: len(nodes)].cpu().numpy())
+        for nd, T in zip(nodes, poses):
+            nd.transform = T
+        if poses_in is not None:
+            self.record.append(MapSolveRecord(
+                [nd.payload.get("frame") for nd in nodes], poses_in,
+                np.array([(i, j) for i, j, _, _ in rels], np.int64).reshape(-1, 2),
+                np.array([T for _, _, T, _ in rels], np.float64).reshape(-1, 4, 4),
+                np.array([w for _, _, _, w in rels], np.float64).reshape(-1, 6, 6), gauge, iters, cg_iters,
+                poses.copy()))
         self.last_cg_iters = stats.cg_iters
         return float(stats.chi2[-1])
 
-    def optimize_hierarchical(self, iters=10, cg_iters=50, gauge_node=None, coarse_iters=12, coarse_cg=60,
-                              precond="chain"):
+    def optimize_hierarchical(self, iters=10, cg_iters=50, gauge_node=None, coarse_iters=COARSE_ITERS,
+                              coarse_cg=COARSE_CG_ITERS, precond="chain"):
         """Coarse-solve the MapMerger's level-1 big-node layer, rigidly warp
         each keyframe group by its big node's correction, then fine-solve
         level 0 warm-started (the reference's hierarchical intent:
@@ -137,10 +186,12 @@ class MapReflector:
 
         Returns (chi2, {"coarse_cg": int, "fine_cg": int}).
         """
+        global solves
+        solves += 1
         mgr = self.manager
         aliases = [n for n in mgr.nodes if n.level == 1]
         if len(aliases) < 3:
-            chi2 = self.optimize(iters, cg_iters, gauge_node, precond=precond)
+            chi2 = self._optimize(iters, cg_iters, gauge_node, precond=precond)
             return chi2, {"coarse_cg": 0, "fine_cg": self.last_cg_iters}
 
         anchors = sorted(aliases, key=lambda a: a.original.seq)
@@ -175,8 +226,7 @@ class MapReflector:
         gauge = group_of(gauge_node.seq) if gauge_node is not None else 0
         g1 = self._pack(anchors, rels, gauge)
         g1_opt, st1 = optimize_se3(g1, iters=coarse_iters, cg_iters=coarse_cg, precond=precond)
-        poses1 = g1_opt.poses.cpu().numpy()
-        T_new = [_pose7_to_T(poses1[i].astype(np.float64)) for i in range(len(anchors))]
+        T_new = _pose7_to_T(g1_opt.poses[: len(anchors)].cpu().numpy())
 
         # rigid group warp: every level-0 node moves with its big node
         for n in mgr.nodes:
@@ -184,5 +234,5 @@ class MapReflector:
                 gi = group_of(n.seq)
                 n.transform = T_new[gi] @ (T_old_inv[gi] @ n.transform)
 
-        chi2 = self.optimize(iters, cg_iters, gauge_node, precond=precond)
+        chi2 = self._optimize(iters, cg_iters, gauge_node, precond=precond)
         return chi2, {"coarse_cg": st1.cg_iters, "fine_cg": self.last_cg_iters}
