@@ -15,8 +15,8 @@ CUDA toolkit and PyTorch built for CUDA; JAX is not needed:
 Phases, one line each or more, any failure exits non-zero:
   1. device: the card, its power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/fused_aligner.cu, csrc/linearizer.cu,
-     csrc/gather_probe.cu and csrc/segment_sum.cu from the checkout, all at
-     once, and prints each kernel's registers, stack and spills and the
+     csrc/gather_probe.cu, csrc/segment_sum.cu and csrc/se3_pcg.cu from the
+     checkout, all at once, and prints each kernel's registers, stack and spills and the
      segment-sum kernel's shared memory a block at the main path's shapes;
   3. kernel 1 (one aligner system) against its plain PyTorch version on the
      640x480 bench pair at three poses (identity, ground truth, a 5 cm /
@@ -50,14 +50,18 @@ Phases, one line each or more, any failure exits non-zero:
   9. PWN SLAM at 640x480 over the bundled sequence (the app's own closer
      radius), then slice 2's main-path run: the loop closer with a 1 m
      radius over phase 5's scale-1 keyframe map and the hierarchical
-     pose-graph solve, whose kernel-2 launches are counted; every
+     pose-graph solve, whose kernel-2 and SE3 CG kernel launches are
+     counted; every
      align_batch call of the closer recorded and run again on the eager
      body, bit-equal to the graph, recording the inputs of each kernel-2
      launch; kernel 2 against its plain version on the inputs of every one
      of those launches (two launches bit-equal), timed in turns with the
      previous batch design at each K of the run; align_batch's graph
-     against its eager body at the largest K; and the app's synthetic
-     40-frame orbit;
+     against its eager body at the largest K; the app's synthetic
+     40-frame orbit; and the SE3 CG kernel (csrc/se3_pcg.cu) at the map
+     solve's coarse (128 poses) and fine (1,024 poses, 2,048 edges) shapes
+     against its plain version, two launches bit-equal, one LM
+     iteration's CG timed in turns against the CG-block graphs it replaced;
  10. the gather probes of apps/profile_gather.py: the TPU script's four
      probes at its shapes beside the launch floor (a one-element add_ timed
      as they are), each kernel bit-equal to its plain version (NaN in
@@ -105,7 +109,7 @@ Phases, one line each or more, any failure exits non-zero:
      LM iteration under torch.profiler, each captured piece's ms and pool
      bytes; the covariance stage against its eager mode. Phases 9, 13, 14
      and 16 record every call of the public solvers (`SolverCalls`), rerun
-     them in eager mode for up to 10 s, bit for bit the same, and print the
+     them in eager mode for up to 5 s, bit for bit the same, and print the
      two times and the captures;
  13. slice 4 (no kernel) at world-2000's counts, a simulated world of 2,001
      poses and 70 landmarks written as a noassoc log: (a) `tracker2d
@@ -270,10 +274,13 @@ def ptxas_lines(log):
     kernels = [("(unnamed)", [])]
     types = {"f": "float", "d": "double"}
     for ln in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?(?<!\d)\d+([a-z][a-z_]*_kernel)(?:I([fd])(?:Li(\d+)E)?E)?",
-                          ln)
-        if entry:
-            name, ty, num = entry.groups()
+        entry = re.search(r"Compiling entry function '(_ZN?)(\w+)'", ln)
+        if entry:  # the mangled name's length-prefixed parts, up to the one that ends in _kernel
+            rest, name = entry.group(2), "(unnamed)"
+            while (part := re.match(r"\d+", rest)) and not name.endswith("_kernel"):
+                n = int(part.group())
+                name, rest = rest[part.end():part.end() + n], rest[part.end() + n:]
+            ty, num = (re.match(r"I([fd])(?:Li(\d+)E)?E", rest) or re.match("()()", "")).groups()
             args = [a for a in (types.get(ty), num) if a]
             kernels.append((name + (f"<{', '.join(args)}>" if args else ""), []))
         elif "registers" in ln or "spill" in ln:
@@ -286,10 +293,11 @@ def build_kernels():
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
     from g2o_frontend_tpu_torch.ops import gather_probe as gp
     from g2o_frontend_tpu_torch.ops import linearizer as lin
+    from g2o_frontend_tpu_torch.ops import se3_pcg
     from g2o_frontend_tpu_torch.ops import segment_sum as ss
 
     t0 = time.perf_counter()
-    modules = (fa, lin, gp, ss)
+    modules = (fa, lin, gp, ss, se3_pcg)
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         builds = [(mod, pool.submit(mod.build)) for mod in modules]
         for mod, fut in builds:
@@ -762,15 +770,18 @@ def phase_slam(ctx, out_dir):
     closer's map is phase 5's scale-1 run; its align_batch calls replay
     graphs, so each call is recorded and run again on the eager body (bit
     for bit the graph's outputs), which records every kernel-2 launch's
-    inputs. Keeps the largest batch's inputs in ctx["k_max"] for phase 10."""
+    inputs. Keeps the largest batch's inputs in ctx["k_max"] for phase 10.
+    Returns with them the SE3 CG kernel's launches in the hierarchical
+    solve and `se3_pcg_check`'s figures."""
     import numpy as np
     import torch
 
     from g2o_frontend_tpu_torch.apps import pwn_odometry, pwn_slam
     from g2o_frontend_tpu_torch.apps.profile_gather import bit_equal, system_bytes
-    from g2o_frontend_tpu_torch.graph.reflector import MapReflector
+    from g2o_frontend_tpu_torch.graph.reflector import COARSE_ITERS, MapReflector
     from g2o_frontend_tpu_torch.io import tum
     from g2o_frontend_tpu_torch.ops import fused_aligner as fa
+    from g2o_frontend_tpu_torch.ops import se3_pcg
     from g2o_frontend_tpu_torch.pwn import aligner as al
     from g2o_frontend_tpu_torch.slam import pwn_matcher
     from g2o_frontend_tpu_torch.slam.map_closer import CloserConfig, MapCloser
@@ -830,8 +841,10 @@ def phase_slam(ctx, out_dir):
     finally:
         pwn_matcher.align_batch = graphed
     t_close = time.perf_counter() - t0
+    se3_pcg.launches = 0
     chi2, cg = reflector.optimize_hierarchical(iters=10, cg_iters=60)
     t_opt = time.perf_counter() - t0 - t_close
+    pcg_launches = se3_pcg.launches
     launches = fa.batch_launches
     ctx["slam"] = dict(tracker=tracker, nodes=nodes)  # the 1 m-radius map, for phase 11
     ate_after = keyframe_ate(nodes, timestamps)
@@ -839,7 +852,10 @@ def phase_slam(ctx, out_dir):
     say("slam", f"closer, 1 m radius over {len(nodes)} keyframes: {len(batches)} batches, K {batches}, "
         f"{committed} closures committed in {t_close:.2f} s; hierarchical solve chi2 {chi2:.6g} "
         f"(cg {cg}) in {t_opt:.2f} s; keyframe ATE {ate_before:.4f} m before, {ate_after:.4f} m after; "
-        f"kernel-2 launches {launches}, kernel-1 launches +{fa.launches - before1}")
+        f"kernel-2 launches {launches}, kernel-1 launches +{fa.launches - before1}, SE3 CG kernel launches "
+        f"{pcg_launches}")
+    check(pcg_launches == 10 + (COARSE_ITERS if sum(n.level == 1 for n in mgr.nodes) >= 3 else 0),
+          f"{pcg_launches} SE3 CG kernel launches for the hierarchical solve's LM iterations")
     check(len(batches) >= 1 and launches == ctx["per_align"] * len(batches),
           f"kernel-2 launches {launches} for {len(batches)} batches")
     check(committed >= 1, "no closure committed")
@@ -923,7 +939,47 @@ def phase_slam(ctx, out_dir):
     say("slam", f"app, --synthetic --frames 40: keyframes {syn['keyframes']}, closures {syn['closures']}, "
         f"batches {syn['batch_sizes']}, final chi2 {syn['final_chi2']:.6g}")
     check(syn["keyframes"] == 8 and syn["closures"] == 2, "synthetic run: expected 8 keyframes and 2 closures")
-    return k2
+    return k2, (pcg_launches,) + se3_pcg_check()
+
+
+def se3_pcg_check():
+    """The SE3 CG kernel (tools/se3_pcg_probe.py) at the map solve's coarse
+    (128 poses, 60 CG steps) and fine (1,024 poses, 2,048 edges, 40 steps)
+    shapes, both preconditioners, on the first LM iteration's system of an
+    `optimize_se3` over a simulated world: the step count equal to the plain
+    version's, x within 1e-2 of the plain x's norm, two launches bit-equal;
+    one LM iteration's CG timed against the CG-block graphs that ran it
+    before (in turns, whole calls by CUDA events), against the plain
+    version and beside the bound of the bytes a step reads. Returns (max
+    relative error of x, then the fine chain shape's kernel ms, plain ms
+    and (bound ms, bound by))."""
+    import torch
+
+    from g2o_frontend_tpu_torch.ops import se3_pcg
+    from tools import se3_pcg_probe as probe
+
+    err, fine = 0.0, None
+    for label, n_poses, cg in probe.SHAPES:
+        g = probe.world(n_poses, torch.device("cuda"))
+        for precond in ("chain", "jacobi"):
+            s, b, rtol, m = probe.systems(g, precond, cg_iters=cg)[0]
+            lay = se3_pcg.layout(b.shape[0], s.pre.n if precond == "chain" else b.shape[0], s.Ji.shape[0])
+            c, t = probe.compare(s, b, rtol, m), probe.timing(s, b, rtol, m)
+            check(c["k"] == c["k_plain"] > 0 and c["rel_x"] <= 1e-2 and c["relaunch_bit_equal"],
+                  f"the SE3 CG kernel differs from its plain version at the {label} shape ({precond}): {c}")
+            err = max(err, c["rel_x"])
+            say("se3_pcg", f"{label}, {precond}: {b.shape[0]} poses, {s.Ji.shape[0]} edges, vectors "
+                f"{'shared' if lay.vectors_shared else 'scratch'}, terms {'shared' if lay.terms_shared else 'scratch'}; "
+                f"{c['k']} steps as the plain version, x within {c['rel_x']:.3e} of its (the plain version on the "
+                f"card against the CPU {c['plain_cpu_rel_x']:.3e}; against float64 kernel {c['kernel_f64_rel_x']:.3e}, "
+                f"plain {c['plain_f64_rel_x']:.3e}), two launches bit-equal; one LM iteration's CG by whole calls "
+                f"in turns: kernel {t['kernel_call_ms']:.4f} ms, CG-block graphs {t['blocks_call_ms']:.4f} ms "
+                f"({t['blocks_host_reads']} host reads); device ms by graph replays: kernel {t['kernel_ms']:.6f} "
+                f"({1e3 * t['kernel_ms'] / t['steps']:.2f} us a step), plain {t['plain_ms']:.6f}; bound "
+                f"{t['bound_ms']:.6f} ({t['step_bytes']} B a step, {100 * t['bound_ms'] / t['kernel_ms']:.2f}% of it)")
+            if (label, precond) == ("fine", "chain"):
+                fine = (t["kernel_ms"], t["plain_ms"], (t["bound_ms"], "bytes"))
+    return (err,) + fine
 
 
 def phase_gather(ctx):
@@ -1543,7 +1599,7 @@ class SolverCalls:
     eager time: each bit-equal to its graphed result, the two times
     compared, and prints them with the captures made in the block."""
 
-    def __init__(self, phase, budget_s=10.0):
+    def __init__(self, phase, budget_s=5.0):
         self.phase, self.budget_s, self.calls = phase, budget_s, []
 
     def __enter__(self):
@@ -3347,7 +3403,7 @@ def run(out_dir):
     phase(7, phase_align_batch, ctx)
     err3, k3_ms, k3_plain_ms, k3_launches, k3_bound = phase(8, phase_kernel3, ctx)
     with SolverCalls("slam") as calls:
-        k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound = phase(9, phase_slam, ctx, out_dir)
+        (k2_launches, err2, k2_ms, k2_previous_ms, k2_plain_ms, k2_bound), se3_row = phase(9, phase_slam, ctx, out_dir)
     callers = {9: calls.report()}
     gather_entries = phase(10, phase_gather, ctx)
     t11 = time.perf_counter()  # 11
@@ -3398,6 +3454,8 @@ def run(out_dir):
          k3_bound),
         ("gauss_newton_step", "fused_aligner.cu", "pwn/aligner.py:530 (gn_step and the chart, XLA; no pl.pallas_call)",
          step_launches, err_step, step_ms, step_plain_ms, step_bound),
+        ("se3_pcg", "se3_pcg.cu", "solvers/pose_graph.py optimize_se3's pcg while_loop (XLA; no pl.pallas_call)",
+         *se3_row),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"g2o_frontend_tpu_torch/csrc/{source}",
@@ -3405,6 +3463,7 @@ def run(out_dir):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     kernels[1]["previous_ms"] = k2_previous_ms  # the previous batch design, in the same turns
+    kernels[4]["max_rel_err"] = kernels[4].pop("max_abs_err")  # x against the plain version's, of its norm
     for k, row in enumerate(kernels[:2]):  # phase 16's paths, each counted from 0
         row["launches_phase16"] = {path: counts[k] for path, counts in paths16.items() if counts[k]}
     kernels += gather_entries

@@ -114,21 +114,19 @@ class MapReflector:
             pp_ij[:ep] = [(i, j) for i, j, _, _ in rels]
             pp_z[:ep] = _T_to_pose7(np.stack([T for _, _, T, _ in rels]))
             pp_w[:ep] = np.stack([info for _, _, _, info in rels])
-        fixed = np.zeros(NP, bool)
-        if n:
-            fixed[gauge_idx] = True
 
         def dev(a, dtype=None):
             return torch.as_tensor(a, dtype=dtype, device=self.device)
 
+        rows = torch.arange(max(NP, EP), device=self.device)  # the masks from the counts: no upload
         return PoseGraph3D(
             poses=dev(poses, torch.float32),
-            pose_mask=dev(np.arange(NP) < n),
+            pose_mask=rows[:NP] < n,
             pp_ij=dev(pp_ij),
             pp_meas=dev(pp_z, torch.float32),
             pp_info=dev(pp_w, torch.float32),
-            pp_mask=dev(np.arange(EP) < ep),
-            fixed=dev(fixed),
+            pp_mask=rows[:EP] < ep,
+            fixed=rows[:NP] == (gauge_idx if n else -1),
         )
 
     def _level_nodes_rels(self, level):

@@ -29,8 +29,11 @@ stays on the device (``torch.where``). Each solve runs through
 `utils.graphs.solve_loop` as JAX runs its ``fori_loop`` / ``while_loop``:
 on the card a graph for an LM iteration's head, one for each block of
 `pcg.BLOCK` masked CG steps (the stopping test computed on the device, read
-once a block) and one for its tail; `optimize_se2_direct` reads its
-convergence test once an LM iteration.
+once a block) and one for its tail; `optimize_se3`'s head ends with its
+whole CG, one launch of the kernel of `ops.se3_pcg`, so it runs no CG
+block and reads nothing until the solve's end, and its start and tail
+take chi2 alone (`chi2_se3`, the start a captured `graphs.Stage`);
+`optimize_se2_direct` reads its convergence test once an LM iteration.
 
 The graph's tensors set the device. Float32 matrix products must run in
 full float32 (the JAX version pins ``"highest"`` precision for this):
@@ -44,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.store import PoseGraph2D, PoseGraph3D
+from ..ops import se3_pcg
 from ..ops import segment_sum as ss
 from ..utils import graphs, lie
 from .pcg import cg_carry, cg_loop
@@ -583,11 +587,17 @@ def se3_pp_residual_local(dxi, dxj, Ti, Tj, Zinv):
     return lie.se3_log(Zinv @ (lie.se3_inverse(Xi) @ Xj))
 
 
-def linearize_se3(g: PoseGraph3D, huber_delta=None) -> Linearization:
+def _se3_frames(g: PoseGraph3D):
+    """(Ti, Tj, Zinv, zero): each edge's end poses and inverse measurement
+    as (EP, 4, 4) matrices, and the zero twist."""
     Ti = _pose7_to_T(g.poses[g.pp_ij[:, 0]])
     Tj = _pose7_to_T(g.poses[g.pp_ij[:, 1]])
     Zinv = lie.se3_inverse(_pose7_to_T(g.pp_meas))
-    zero = torch.zeros(6, dtype=g.poses.dtype, device=g.poses.device)
+    return Ti, Tj, Zinv, torch.zeros(6, dtype=g.poses.dtype, device=g.poses.device)
+
+
+def linearize_se3(g: PoseGraph3D, huber_delta=None) -> Linearization:
+    Ti, Tj, Zinv, zero = _se3_frames(g)
     e = se3_pp_residual_local(zero, zero, Ti, Tj, Zinv)
     Ji = torch.func.jacfwd(lambda d: se3_pp_residual_local(d, zero, Ti, Tj, Zinv))(zero)
     Jj = torch.func.jacfwd(lambda d: se3_pp_residual_local(zero, d, Ti, Tj, Zinv))(zero)
@@ -604,6 +614,8 @@ class _SE3Consts(NamedTuple):
 
 
 def _se3_head(inputs, st: LMState):
+    """Linearize, the gradient and block diagonal, the preconditioner, and
+    the whole CG (`ops.se3_pcg.solve`: one kernel launch on the card)."""
     g, c, prm = inputs
     lin = linearize_se3(g.with_poses(st.poses), prm.huber_delta)
     we = torch.einsum("kij,kj->ki", lin.w_pp, lin.e_pp)
@@ -616,54 +628,22 @@ def _se3_head(inputs, st: LMState):
     Dp_d = _damped(Dp, st.lam, c.free_p)
     if prm.precond == "chain":
         L_pre, U_pre = _chain_blocks(lin, c.chain, c.chain_i, c.free_p)
-        pre = (cr_factor(L_pre, Dp_d, U_pre),)
+        pre = cr_factor(L_pre, Dp_d, U_pre)
     else:
-        pre = (_inv(Dp_d),)
-    mid = _Mid(lin, Dp, None, st.lam, pre, None)
-    carry, tol2 = cg_carry((-gp * c.free_p[:, None],), _se3_operators(((g, c, prm), mid))[1], 1e-8)
-    return mid._replace(tol2=tol2), carry
+        pre = _inv(Dp_d)
+    system = se3_pcg.System(lin.Ji_pp, lin.Jj_pp, lin.w_pp, c.I_seg, c.J_seg, Dp, st.lam, c.free_p, pre)
+    return lin.chi2, se3_pcg.solve(system, -gp * c.free_p[:, None], 1e-8, prm.cg_iters)
 
 
-def _se3_operators(cs):
-    (g, c, prm), mid = cs
-    I, J = g.pp_ij[:, 0], g.pp_ij[:, 1]
-    lin, Dp, lam, free_p = mid.lin, mid.Dp, mid.lam, c.free_p
-
-    def hvp(v):
-        (vp,) = v
-        vp = vp * free_p[:, None]
-        Jv = torch.einsum("kdi,ki->kd", lin.Ji_pp, vp[I]) + torch.einsum("kdi,ki->kd", lin.Jj_pp, vp[J])
-        WJv = torch.einsum("kde,ke->kd", lin.w_pp, Jv)
-        hp = ss.segment_sum(torch.einsum("kdi,kd->ki", lin.Ji_pp, WJv), c.I_seg) + ss.segment_sum(
-            torch.einsum("kdi,kd->ki", lin.Jj_pp, WJv), c.J_seg
-        )
-        hp = hp + lam * torch.einsum("kij,kj->ki", Dp, vp)
-        return (hp * free_p[:, None] + (1.0 - free_p)[:, None] * vp,)
-
-    if prm.precond == "chain":
-        (fac,) = mid.pre
-
-        def pre(r):
-            return (cr_solve(fac, r[0]),)
-
-    else:
-        (Dp_inv,) = mid.pre
-
-        def pre(r):
-            return (torch.einsum("kij,kj->ki", Dp_inv, r[0]),)
-
-    return hvp, pre
-
-
-def _se3_tail(inputs, st: LMState, mid: _Mid, carry) -> LMState:
+def _se3_tail(inputs, st: LMState, chi2, carry) -> LMState:
     g, c, prm = inputs
     (dp,) = carry.x
     new_poses = _T_to_pose7(_pose7_to_T(st.poses) @ lie.se3_exp(dp * c.free_p[:, None]))
-    lin_new = linearize_se3(g.with_poses(new_poses), prm.huber_delta)
-    accept = lin_new.chi2 < mid.lin.chi2
+    chi2_new = chi2_se3(g.with_poses(new_poses), prm.huber_delta)
+    accept = chi2_new < chi2
     poses = torch.where(accept, new_poses, st.poses)
     lam = torch.where(accept, torch.clamp_min(st.lam * 0.5, 1e-10), torch.clamp_max(st.lam * 4.0, 1e8))
-    trace = trace_put(st.trace, st.k, torch.where(accept, lin_new.chi2, mid.lin.chi2))
+    trace = trace_put(st.trace, st.k, torch.where(accept, chi2_new, chi2))
     return LMState(poses, None, lam, trace, st.k + 1, st.cg_total + carry.k)
 
 
@@ -679,7 +659,8 @@ def optimize_se3(
 
     precond: "jacobi" (the 6x6 block diagonal) or "chain" (the
     block-tridiagonal odometry-chain factor by cyclic reduction). `iters`
-    LM iterations, run as `optimize_se2` runs them.
+    LM iterations, each run by `utils.graphs.solve_loop` as a head, which
+    ends with the whole CG (`ops.se3_pcg.solve`), and a tail.
     """
     if precond not in PRECONDITIONERS:
         raise ValueError(f"precond must be one of {PRECONDITIONERS}, got {precond!r}")
@@ -688,12 +669,18 @@ def optimize_se3(
     chain, chain_i = _chain(g) if precond == "chain" else (None, None)
     consts = _SE3Consts(free_p, ss.SegmentIndex(g.pp_ij[:, 0], NP), ss.SegmentIndex(g.pp_ij[:, 1], NP), chain,
                         chain_i)
-    state = _start(g.poses, linearize_se3(g, huber_delta).chi2, lm_lambda0, iters)
-    solve = graphs.Solve(_se3_head, _se3_tail, _cg_report, cg_loop(_se3_operators, lambda cs: cs[1].tol2, cg_iters))
-    st, (cg_total,) = graphs.solve_loop(f"optimize_se3 ({precond})", solve,
+    state = _start(g.poses, _CHI2_SE3(g, huber_delta), lm_lambda0, iters)
+    st, (cg_total,) = graphs.solve_loop(f"optimize_se3 ({precond})", graphs.Solve(_se3_head, _se3_tail, _cg_report),
                                         (g, consts, _Params(huber_delta, precond, cg_iters)), state, iters)
     return g.with_poses(st.poses), OptStats(st.trace, st.lam, cg_total)
 
 
-def chi2_se3(g: PoseGraph3D) -> torch.Tensor:
-    return linearize_se3(g).chi2
+def chi2_se3(g: PoseGraph3D, huber_delta=None) -> torch.Tensor:
+    """`linearize_se3(g, huber_delta).chi2`, bit for bit, without the
+    Jacobians, whose forward-mode products are most of its operations."""
+    Ti, Tj, Zinv, zero = _se3_frames(g)
+    return _weigh(se3_pp_residual_local(zero, zero, Ti, Tj, Zinv), g.pp_info, g.pp_mask, huber_delta)[1]
+
+
+# the start of `optimize_se3`: one graph replay in place of its ~400 eager launches
+_CHI2_SE3 = graphs.Stage("chi2_se3", chi2_se3, second_call=True)

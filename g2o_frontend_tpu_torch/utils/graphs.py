@@ -98,7 +98,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops import fused_aligner, linearizer, segment_sum
+from ..ops import fused_aligner, linearizer, se3_pcg, segment_sum
 from .profiling import recording, span
 
 # the launch counters of the kernels the stages and loops run: (module, attribute)
@@ -108,6 +108,7 @@ COUNTERS = (
     (linearizer, "launches"),
     (segment_sum, "launches"),
     (fused_aligner, "step_launches"),
+    (se3_pcg, "launches"),
 )
 
 MODES = ("graph", "masked", "eager")

@@ -22,6 +22,7 @@ import torch
 
 from g2o_frontend_tpu_torch.ops import fused_aligner as fa
 from g2o_frontend_tpu_torch.ops import linearizer as lin
+from g2o_frontend_tpu_torch.ops import se3_pcg
 from g2o_frontend_tpu_torch.ops import segment_sum as ss
 from g2o_frontend_tpu_torch.pwn import aligner as al
 from g2o_frontend_tpu_torch.pwn import converter as cv
@@ -186,8 +187,8 @@ class StandInGraph:
         self.static_out[0].copy_(self.static_in[0] * 2)
 
 
-@pytest.mark.parametrize("launches", [(11, 0, 0, 0, 10), (0, 11, 0, 0, 0), (0, 0, 11, 0, 0), (3, 1, 2, 0, 2),
-                                      (0, 0, 0, 7, 0), (3, 1, 2, 40, 1)])
+@pytest.mark.parametrize("launches", [(11, 0, 0, 0, 10, 0), (0, 11, 0, 0, 0, 0), (0, 0, 11, 0, 0, 0),
+                                      (3, 1, 2, 0, 2, 5), (0, 0, 0, 7, 0, 0), (3, 1, 2, 40, 1, 17)])
 def test_replay_counts_the_captured_launches(monkeypatch, launches):
     for mod, attr in graphs.COUNTERS:
         monkeypatch.setattr(mod, attr, 5)
@@ -197,7 +198,7 @@ def test_replay_counts_the_captured_launches(monkeypatch, launches):
     outs = [g.replay([torch.full((3,), float(k))]) for k in range(1, 4)]
     assert g.graph.replays == 3
     assert [getattr(mod, attr) for mod, attr in graphs.COUNTERS] == [5 + 3 * n for n in launches]
-    assert (fa.launches, fa.batch_launches, lin.launches, ss.launches, fa.step_launches) == tuple(
+    assert (fa.launches, fa.batch_launches, lin.launches, ss.launches, fa.step_launches, se3_pcg.launches) == tuple(
         5 + 3 * n for n in launches)
     # each call's outputs are its own clones, not the static buffers
     assert [o[0].tolist() for o in outs] == [[2.0] * 3, [4.0] * 3, [6.0] * 3]
